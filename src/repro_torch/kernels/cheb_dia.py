@@ -1,0 +1,62 @@
+"""Wrapper of the CUDA fused DIA Chebyshev step (``csrc/cheb_dia.cu``).
+
+``y = 2a·(A@x) + 2b·w1 − w2`` for a DIA operator (``offsets`` ascending,
+``dvals [n_diag, R]``, zero where a diagonal has no entry). It replaces the
+Pallas TPU kernel ``repro/kernels/cheb_dia.py::cheb_dia``; its plain
+version is :func:`repro_torch.kernels.ref.cheb_dia_ref`. This wrapper takes
+CUDA tensors only (``ops.cheb_dia`` sends CPU tensors to the plain version)
+and raises on anything the kernel cannot take.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+#: Most diagonals one launch takes (the kernel's by-value offset table).
+MAX_DIAGS = 64
+
+_ENTRY = {torch.float64: "cheb_dia_f64", torch.float32: "cheb_dia_f32"}
+
+
+def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
+             w2: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
+    """Launch the kernel. ``x [Rx, n_b]`` with Rx >= R (a halo may be
+    appended), ``w1/w2 [R, n_b]``, all of one real dtype, contiguous and
+    on one CUDA device."""
+    if any(t.is_complex() for t in (dvals, x, w1, w2)):
+        raise NotImplementedError("cheb_dia: complex operators are not "
+                                  "ported yet, see ROADMAP")
+    if x.device.type != "cuda":
+        raise ValueError(f"cheb_dia kernel needs CUDA tensors, got {x.device}")
+    offsets = [int(o) for o in offsets]
+    if len(offsets) > MAX_DIAGS or offsets != sorted(set(offsets)):
+        raise ValueError(f"cheb_dia: needs <= {MAX_DIAGS} ascending distinct "
+                         f"offsets, got {len(offsets)}")
+    if x.dtype not in _ENTRY or any(t.dtype != x.dtype for t in (dvals, w1, w2)):
+        raise TypeError("cheb_dia: dvals/x/w1/w2 must share one dtype of "
+                        "float64, float32")
+    R, nb = w1.shape
+    if (w2.shape != (R, nb) or dvals.shape != (len(offsets), R)
+            or x.ndim != 2 or x.shape[1] != nb or x.shape[0] < R):
+        raise ValueError(f"cheb_dia: shapes dvals {tuple(dvals.shape)} "
+                         f"x {tuple(x.shape)} w1 {tuple(w1.shape)} "
+                         f"w2 {tuple(w2.shape)}")
+    for t in (dvals, x, w1, w2):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("cheb_dia: operands must be contiguous and on "
+                             "one device")
+    y = torch.empty((R, nb), dtype=x.dtype, device=x.device)
+    lib = build.load()
+    name = _ENTRY[x.dtype]
+    offs = (ctypes.c_int * max(len(offsets), 1))(*offsets)
+    with torch.cuda.device(x.device):
+        err = getattr(lib, name)(offs, len(offsets), dvals.data_ptr(),
+                                 x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                                 y.data_ptr(), R, x.shape[0], nb,
+                                 float(alpha), float(beta), build.stream_of(x))
+    build.check(err, name)
+    build.launches["cheb_dia"] += 1
+    return y

@@ -1,0 +1,93 @@
+"""Dispatch between the CUDA kernels and their plain versions, and the
+host planner of the DIA form.
+
+The rules:
+
+* a CUDA tensor goes to the kernel (``ell_gather.py``, ``cheb_dia.py``);
+* a CPU tensor goes to the plain version (``ref.py``);
+* a CUDA tensor that the kernel cannot take raises; nothing falls back.
+
+The CUDA kernels mask a ragged R or n_b themselves, so no shape is sent
+elsewhere for being ragged. Which of the two kernels carries a fused
+Chebyshev step is a structural choice made once, at operator build time
+(``core/spmv.py``): the DIA whole-step when :func:`plan_dia` accepts the
+operator, the ELL contraction plus epilogue otherwise.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import ref
+
+#: Max distinct diagonal offsets before plan_dia refuses (the DIA form
+#: stores n_diag * R values; past a few dozen diagonals the gather-free
+#: format stops paying for itself).
+DIA_MAX_DIAGS = 64
+
+
+def ell_spmv(cols, vals, x, y0=None):
+    """``y0 + A·x`` for one ELL block ``cols/vals [R, W]`` (``y0 = 0``
+    when omitted), per row in slot order."""
+    if x.device.type == "cpu":
+        acc = y0 if y0 is not None else torch.zeros(
+            (cols.shape[0], x.shape[1]), dtype=torch.result_type(vals, x))
+        return ref.ell_spmv_acc_ref(acc, cols, vals, x)
+    from .ell_gather import ell_gather_spmv
+
+    return ell_gather_spmv(cols, vals, x, y0)
+
+
+def cheb_dia(offsets, dvals, x, w1, w2, alpha, beta):
+    """Fused Chebyshev DIA step ``2a·(A@x) + 2b·w1 − w2``."""
+    if x.device.type == "cpu":
+        return ref.cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta)
+    from .cheb_dia import cheb_dia as kernel
+
+    return kernel(offsets, dvals, x, w1, w2, alpha, beta)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaPlan:
+    """Host-extracted DIA form of a one-shard zero-halo [R, W] ELL block:
+    ``offsets`` sorted ascending (so the per-row accumulation order equals
+    the ELL slot order), ``dvals[d, r]`` the value at (r, r + offsets[d])
+    (0 where the diagonal has no entry)."""
+
+    offsets: tuple[int, ...]
+    dvals: torch.Tensor  # [n_diag, R]
+
+
+def plan_dia(cols, vals, R: int, *, max_diags: int = DIA_MAX_DIAGS,
+             device=None) -> DiaPlan | None:
+    """Extract the DIA form of a one-shard ELL block, or ``None``.
+
+    ``cols/vals`` are [R, W] numpy arrays or tensors. Refuses (caller keeps
+    the ELL path) when the values are not real floating, a column lies
+    outside ``[0, R)`` (the block has halo entries), or the block needs more
+    than ``max_diags`` distinct diagonals. One scatter places every stored
+    entry, however many rows there are.
+    """
+    cols = cols.cpu().numpy() if isinstance(cols, torch.Tensor) else np.asarray(cols)
+    vals = vals.cpu().numpy() if isinstance(vals, torch.Tensor) else np.asarray(vals)
+    if not np.issubdtype(vals.dtype, np.floating):
+        return None
+    Rb, W = cols.shape
+    if W == 0 or Rb != R:
+        return None
+    rr, ww = np.nonzero(vals != 0)
+    if not len(rr):
+        return None
+    c = cols[rr, ww].astype(np.int64)
+    if c.max() >= R:
+        return None  # halo entries: not a comm-free local block
+    offs = c - rr
+    uniq = np.unique(offs)
+    if len(uniq) > max_diags:
+        return None
+    dvals = np.zeros((len(uniq), R), dtype=vals.dtype)
+    dvals[np.searchsorted(uniq, offs), rr] = vals[rr, ww]
+    return DiaPlan(offsets=tuple(int(o) for o in uniq),
+                   dvals=torch.as_tensor(dvals, device=device))

@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the two kernels (shape-exact references).
+
+They run on any device: on the CPU they are what ``ops`` dispatches to,
+on the card ``chip_smoke.py`` holds each CUDA kernel against them.
+
+``torch.addcmul`` computes ``acc + v·x`` with one rounding, as XLA's CPU
+backend contracts the reference's scan body ``acc + v·x[c]`` into an FMA,
+so in fp64 the ELL contraction here equals ``repro.kernels.ref`` bit for
+bit; a plain ``acc + v * x`` rounds twice and differs in the last bits.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ell_spmv_acc_ref(acc, cols, vals, x):
+    """Accumulator-threaded ELL contraction: one slot per step into
+    ``acc``, so per output element the addition order is the slot order.
+    ``cols/vals [R, W]``, ``x [Rx, nb]``, ``acc [R, nb]``."""
+    for w in range(cols.shape[1]):
+        acc = torch.addcmul(acc, vals[:, w, None], x.index_select(0, cols[:, w]))
+    return acc
+
+
+def ell_spmv_ref(cols, vals, x):
+    """y[r] = sum_w vals[r, w] * x[cols[r, w]];  cols [R,W], x [Rx, nb]."""
+    acc0 = torch.zeros((cols.shape[0], x.shape[1]),
+                       dtype=torch.result_type(vals, x), device=x.device)
+    return ell_spmv_acc_ref(acc0, cols, vals, x)
+
+
+def cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta):
+    """Fused Chebyshev step for a DIA (diagonal-offset) matrix.
+
+    y = 2*alpha*(A@x) + 2*beta*w1 - w2 with
+    (A@x)[i] = sum_d dvals[d, i] * x[i + offsets[d]]  (zero out of range).
+
+    ``offsets`` ascending ints; ``dvals [n_diag, R]``; ``x [Rx, nb]`` with
+    Rx >= R (a halo may be appended); ``w1/w2 [R, nb]``. Each diagonal is
+    one shifted slice of ``x`` (no gather), accumulated with one rounding
+    per entry in ascending offset order — the ELL slot order of the same
+    operator, so the two contractions agree bit for bit.
+    """
+    R, nb = w1.shape
+    Rx = x.shape[0]
+    acc = torch.zeros((R, nb), dtype=torch.result_type(dvals, x), device=x.device)
+    for d, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(R, Rx - off)
+        if lo >= hi:
+            continue
+        acc[lo:hi] = torch.addcmul(acc[lo:hi], dvals[d, lo:hi, None],
+                                   x[lo + off:hi + off])
+    return cheb_epilogue(acc, w1, w2, alpha, beta)
+
+
+def cheb_epilogue(y, w1, w2, alpha, beta):
+    """``2a·y + 2b·w1 − w2`` rounded as the reference's fused step body
+    ``2.0 * a * y + 2.0 * b * w1 - w2`` is on the CPU: each product
+    rounded, then the two sums in order (XLA does not contract this
+    expression into an FMA)."""
+    return 2.0 * alpha * y + 2.0 * beta * w1 - w2

@@ -1,0 +1,107 @@
+"""Hubbard matrix — ScaMaC-pattern-equivalent generator (the port's copy).
+
+1-D Hubbard chain (open boundaries) with n_sites sites and n_fermions
+electrons per spin orientation:
+
+    H = -t sum_{<ij>,sigma} c†_{i,sigma} c_{j,sigma}
+        + U sum_i n_{i,up} n_{i,dn}  + ranpot * sum_i eps_i (n_{i,up}+n_{i,dn})
+
+Basis: |up> (x) |dn>, index i = i_up * D_spin + i_dn, each spin sector in
+increasing-bitmask (combinadic) order. Dimension D = C(n_sites,n_fermions)^2.
+The diagonal is stored only when U or ranpot is nonzero.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .basis import binom_table, enumerate_masks, hop_neighbors, rank_masks
+from .families import MatrixFamily, register
+
+
+@register
+class Hubbard(MatrixFamily):
+    name = "Hubbard"
+    is_complex = False
+
+    def __init__(
+        self,
+        n_sites: int = 8,
+        n_fermions: int = 4,
+        t: float = 1.0,
+        U: float = 0.0,
+        ranpot: float = 0.0,
+        seed: int = 42,
+    ):
+        self.n_sites, self.n_fermions = int(n_sites), int(n_fermions)
+        self.t, self.U, self.ranpot = float(t), float(U), float(ranpot)
+        C = binom_table(self.n_sites)
+        self.D_spin = int(C[self.n_sites, self.n_fermions])
+        if self.D_spin > 40_000_000:
+            raise MemoryError("spin sector too large to enumerate")
+        self.masks = enumerate_masks(self.n_sites, self.n_fermions)
+        rng = np.random.default_rng(seed)
+        self.eps = rng.uniform(-1.0, 1.0, size=self.n_sites)
+        # single-spin hop graph (CSR over the spin sector)
+        src, tgt_masks, _ = hop_neighbors(self.masks, self.n_sites, self.n_fermions)
+        tgt = rank_masks(tgt_masks, self.n_sites, self.n_fermions)
+        order = np.argsort(src, kind="stable")
+        src, tgt = src[order], tgt[order]
+        self.adj_indptr = np.zeros(self.D_spin + 1, dtype=np.int64)
+        np.add.at(self.adj_indptr, src + 1, 1)
+        self.adj_indptr = np.cumsum(self.adj_indptr)
+        self.adj_targets = tgt
+
+    @property
+    def D(self) -> int:
+        return self.D_spin * self.D_spin
+
+    @property
+    def has_diag(self) -> bool:
+        return self.U != 0.0 or self.ranpot != 0.0
+
+    def _adj_expand(self, idx: np.ndarray):
+        """Vectorized (row_repeat, targets, counts) for many spin rows."""
+        idx = np.asarray(idx, dtype=np.int64)
+        counts = (self.adj_indptr[idx + 1] - self.adj_indptr[idx]).astype(np.int64)
+        total = int(counts.sum())
+        row_rep = np.repeat(idx, counts)
+        starts = np.repeat(self.adj_indptr[idx], counts)
+        offs = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(counts) - counts, counts
+        )
+        return row_rep, self.adj_targets[starts + offs], counts
+
+    def row_cols(self, rows: np.ndarray):
+        r, c, _ = self.row_entries(rows)
+        return r, c
+
+    def row_entries(self, rows: np.ndarray):
+        rows = np.asarray(rows, dtype=np.int64)
+        Ds = self.D_spin
+        i_up, i_dn = rows // Ds, rows % Ds
+        out_r, out_c, out_v = [], [], []
+        if self.has_diag:
+            up_m, dn_m = self.masks[i_up], self.masks[i_dn]
+            dbl = np.bitwise_count(up_m & dn_m).astype(np.float64)
+            pot = np.zeros(len(rows))
+            for s in range(self.n_sites):
+                occ = ((up_m >> s) & 1) + ((dn_m >> s) & 1)
+                pot += self.eps[s] * occ
+            out_r.append(rows)
+            out_c.append(rows)
+            out_v.append(self.U * dbl + self.ranpot * pot)
+        _, tgt_dn, cnt_dn = self._adj_expand(i_dn)
+        out_r.append(np.repeat(rows, cnt_dn))
+        out_c.append(np.repeat(i_up, cnt_dn) * Ds + tgt_dn)
+        out_v.append(np.full(tgt_dn.shape, -self.t))
+        _, tgt_up, cnt_up = self._adj_expand(i_up)
+        out_r.append(np.repeat(rows, cnt_up))
+        out_c.append(tgt_up * Ds + np.repeat(i_dn, cnt_up))
+        out_v.append(np.full(tgt_up.shape, -self.t))
+        return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
+
+    def describe(self) -> str:
+        return (
+            f"Hubbard,n_sites={self.n_sites},n_fermions={self.n_fermions} "
+            f"(D={self.D}, U={self.U}, ranpot={self.ranpot})"
+        )
