@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py [--out RECORD.json]
+    python3 chip_smoke.py [--out RECORD.json] [--kernels-only]
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -14,7 +14,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``cheb_dia`` on the Hubbard(12,6) DIA form at n_b = 512, each in fp64
    (≤ 1e-13 relative to max|y|) and fp32 (≤ 1e-5); times from CUDA events
    beside the bound (bytes over 3.35 TB/s or operations over the peak) and,
-   for the SpMV, a cuSPARSE CSR product as the library yardstick;
+   for the SpMV, a cuSPARSE CSR product as the library yardstick. The DIA
+   step's bound counts the compact operator its kernel reads, once; the
+   earlier formula, which counted the dense dvals, is kept beside it as
+   ``bound_ms_dense``. Each
+   case also prints the slab width the rule chose (``kernels/plan.py``),
+   the bytes of its schedule with x read once and the effective bytes
+   (ms × 3.35 TB/s). A sweep of forced slab widths (fp64, Hubbard n_b =
+   512, each held to the plain version) is what ``plan.SLAB_ROW_BYTES``
+   is set from, and the filter's ``Y.add_(T, alpha=mu)`` is timed at the
+   same shape;
 4. solve — ``repro_torch.launch.solve`` in-process on Hubbard(12,6, U=25,
    ranpot=1) at N_s = 512, fp64, kernels on, τ just below the spectrum,
    with both launch counts set to 0 before and required > 0 after; every
@@ -23,7 +32,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
-them is the ``kernels`` record.
+them is the ``kernels`` record. ``--kernels-only`` stops after phase 3 and
+prints no result line (for tuning the kernels; the full run is the check).
 """
 from __future__ import annotations
 
@@ -45,6 +55,9 @@ SPIN = dict(n_sites=24, n_up=12)
 N_SEARCH = 512
 N_TARGET = 16
 MAX_ITERS = 60  # ~53 needed: residuals halve per iteration once locked on
+# forced slab widths timed at Hubbard n_b = 512 (fp64)
+SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
+              "ell_gather": (32, 128, N_SEARCH)}
 REPLACES = {
     "ell_gather": "src/repro/kernels/ell_gather.py:172",
     "cheb_dia": "src/repro/kernels/cheb_dia.py:125",
@@ -95,9 +108,11 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
 
 
 def compare(name, case, dtype, kernel, plain, n_bytes, n_ops, library=None,
-            reps=(10, 3)):
+            reps=(10, 3), slab=None, extra=None):
     """Run the kernel and its plain version on the same inputs, hold them
-    to the tolerance, time both (and the library call)."""
+    to the tolerance, time both (and the library call). ``slab`` is the
+    rule's (c, modelled bytes) for the launch; ``extra`` is added to the
+    record."""
     import torch
 
     y = kernel()
@@ -113,14 +128,20 @@ def compare(name, case, dtype, kernel, plain, n_bytes, n_ops, library=None,
     plain_ms = time_ms(plain, reps[1])
     lib_ms = time_ms(library, reps[0]) if library is not None else None
     b_ms, b_by = bound_ms(n_bytes, n_ops, dtype)
+    c, model = slab if slab is not None else (None, None)
     rec = dict(name=name, case=case, dtype=dtype, max_abs_err=err,
                max_rel_err=rel, bitwise=bitwise, ms=ms, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-               share_of_bound=b_ms / ms, tol=TOL[dtype])
+               share_of_bound=b_ms / ms, tol=TOL[dtype], slab=c,
+               model_bytes=model, effective_bytes=ms * 1e-3 * HBM_BYTES_PER_S,
+               **(extra or {}))
     log(f"[kernels] {name} {case} {dtype}: max|err|={err:.3e} "
         f"rel={rel:.3e} bitwise={bitwise} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
-        f"bound_ms={b_ms:.4f} ({b_by})")
+        f"bound_ms={b_ms:.4f} ({b_by}) slab={c} "
+        f"model_GB={model if model is None else round(model / 1e9, 3)} "
+        f"effective_GB={rec['effective_bytes'] / 1e9:.3f}"
+        + "".join(f" {k}={v:.4f}" for k, v in (extra or {}).items()))
     if not finite or not rel <= TOL[dtype]:
         raise SmokeFailure(f"{name} {case} {dtype} disagrees with its plain "
                            f"version: rel {rel:.3e} > {TOL[dtype]:.0e}")
@@ -140,11 +161,61 @@ def csr_library(cols, vals):
                                    size=(R, R))
 
 
+def ell_slab(cp, nb, S, c=None):
+    """The ELL kernel's slab width (the rule's unless ``c``) and the bytes
+    of its schedule, over the padding-free form ``cp``."""
+    from repro_torch.kernels import plan
+    from repro_torch.kernels.ell_gather import slab_for
+
+    c = slab_for(nb, c)
+    return c, plan.model_bytes(cp.R, nb, S, c, plan.ell_bytes_per_row(cp),
+                               streams=1)
+
+
+def dia_slab(dia, nb, S, c=None):
+    """The DIA kernel's slab width (the rule's unless ``c``) and the bytes
+    of its schedule."""
+    from repro_torch.kernels import plan
+    from repro_torch.kernels.cheb_dia import slab_for
+
+    c = slab_for(dia.compact.dtype, dia.span, nb, c)
+    return c, plan.model_bytes(dia.compact.R, nb, S, c,
+                               dia.compact.bytes_per_row)
+
+
+def slab_sweep(records: list, name: str, launch, want, n_bytes,
+               model) -> None:
+    """Time ``launch(c)`` at each forced slab width of ``SLAB_SWEEP``,
+    each result held to the plain version's ``want`` bit for bit."""
+    import torch
+
+    for c in SLAB_SWEEP[name]:
+        y = launch(c)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(y, want))
+        del y
+        ms = time_ms(lambda: launch(c), 5)
+        b_ms, _ = bound_ms(n_bytes, 0.0, "float64")
+        rec = dict(name=name, case=f"sweep Hubbard n_b={N_SEARCH} c={c}",
+                   dtype="float64", slab=c, ms=ms, bitwise=bitwise,
+                   bound_ms=b_ms, share_of_bound=b_ms / ms,
+                   model_bytes=model(c),
+                   effective_bytes=ms * 1e-3 * HBM_BYTES_PER_S)
+        records.append(rec)
+        log(f"[sweep] {name} c={c}: ms={ms:.4f} bitwise={bitwise} "
+            f"model_GB={rec['model_bytes'] / 1e9:.3f} "
+            f"effective_GB={rec['effective_bytes'] / 1e9:.3f} "
+            f"share_of_bound={b_ms / ms:.3f}")
+        if not bitwise:
+            raise SmokeFailure(f"{name} at slab width {c} differs from its "
+                               "plain version")
+
+
 def phase_kernels(records: list) -> None:
     import torch
 
     from repro_torch.core import build_dist_ell
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, plan, ref
     from repro_torch.kernels.cheb_dia import cheb_dia as k_dia
     from repro_torch.kernels.ell_gather import ell_gather_spmv as k_ell
     from repro_torch.matrices import Hubbard, SpinChainXXZ
@@ -156,7 +227,7 @@ def phase_kernels(records: list) -> None:
         mat = fam(**params)
         ell64 = build_dist_ell(mat, 1, dtype="float64", device="cuda")
         log(f"[kernels] {mat.describe()}: ELL R={ell64.R} W={ell64.W} "
-            f"built in {time.perf_counter() - t0:.2f} s")
+            f"span={ell64.span} built in {time.perf_counter() - t0:.2f} s")
         for dtype in ("float64", "float32"):
             tdt = getattr(torch, dtype)
             S = torch.finfo(tdt).bits // 8
@@ -164,33 +235,71 @@ def phase_kernels(records: list) -> None:
             vals = ell64.vals.to(tdt)
             nnz = int((vals != 0).sum())
             A = csr_library(cols, vals)
+            cpe = plan.compact_ell(cols, vals)  # built once, as make_spmv does
             for nb in nbs:
                 x = torch.randn((ell64.R, nb), generator=gen, device="cuda",
                                 dtype=torch.float64).to(tdt)
                 n_bytes = ell64.R * nb * S * 2 + nnz * (4 + S)
                 records.append(compare(
                     "ell_gather", f"{fam.name} n_b={nb}", dtype,
-                    lambda: k_ell(cols, vals, x), lambda: ref.ell_spmv_ref(cols, vals, x),
-                    n_bytes, 2.0 * nnz * nb, library=lambda: A @ x))
+                    lambda: k_ell(cols, vals, x, compact=cpe),
+                    lambda: ref.ell_spmv_ref(cols, vals, x),
+                    n_bytes, 2.0 * nnz * nb, library=lambda: A @ x,
+                    slab=ell_slab(cpe, nb, S)))
+                if fam is Hubbard and nb == N_SEARCH and dtype == "float64":
+                    want = ref.ell_spmv_ref(cols, vals, x)
+                    slab_sweep(
+                        records, "ell_gather",
+                        lambda c: k_ell(cols, vals, x, compact=cpe, slab=c),
+                        want, n_bytes, lambda c: ell_slab(cpe, nb, S, c)[1])
+                    del want
                 del x
             if fam is Hubbard:
                 dia = ops.plan_dia(cols, vals, ell64.R, device="cuda")
                 if dia is None or len(dia.offsets) > ops.DIA_MAX_DIAGS:
                     raise SmokeFailure("Hubbard(12,6) has no DIA form")
+                cp = dia.compact
                 log(f"[kernels] {mat.describe()}: DIA form, "
-                    f"{len(dia.offsets)} diagonals")
+                    f"{len(dia.offsets)} diagonals, span {dia.span}; compact "
+                    f"{cp.nnz} entries, {cp.bytes_per_row:.2f} B a row, "
+                    f"at most {cp.max_row} in a row, "
+                    f"{0 if cp.table is None else len(cp.table)} table values")
                 nb = N_SEARCH
                 x, w2 = (torch.randn((ell64.R, nb), generator=gen, device="cuda",
                                      dtype=torch.float64).to(tdt) for _ in range(2))
-                n_bytes = 3 * ell64.R * nb * S + dia.dvals.numel() * S
+                # x (= w1), w2 and y once, and the compact operator the
+                # kernel reads, once; the earlier formula counted dense dvals
+                n_bytes = 3 * ell64.R * nb * S + cp.bytes_per_row * cp.R
+                dense_ms, _ = bound_ms(
+                    3 * ell64.R * nb * S + dia.dvals.numel() * S, 0.0, dtype)
+
+                def step(c=None):
+                    return k_dia(dia.offsets, dia.dvals, x, x, w2, 0.013, -0.4,
+                                 compact=cp, span=dia.span, slab=c)
+
                 records.append(compare(
-                    "cheb_dia", f"Hubbard n_b={nb}", dtype,
-                    lambda: k_dia(dia.offsets, dia.dvals, x, x, w2, 0.013, -0.4),
+                    "cheb_dia", f"Hubbard n_b={nb}", dtype, step,
                     lambda: ref.cheb_dia_ref(dia.offsets, dia.dvals, x, x, w2,
                                              0.013, -0.4),
-                    n_bytes, 2.0 * nnz * nb + 4.0 * ell64.R * nb, reps=(5, 2)))
-                del x, w2, dia
-            del A, vals
+                    n_bytes, 2.0 * nnz * nb + 4.0 * ell64.R * nb, reps=(5, 2),
+                    slab=dia_slab(dia, nb, S),
+                    extra=dict(bound_ms_dense=dense_ms)))
+                if dtype == "float64":
+                    want = ref.cheb_dia_ref(dia.offsets, dia.dvals, x, x, w2,
+                                            0.013, -0.4)
+                    slab_sweep(records, "cheb_dia", step, want, n_bytes,
+                               lambda c: dia_slab(dia, nb, S, c)[1])
+                    del want
+                    # the filter's Y += mu_k·T_k, one torch call a step
+                    ms = time_ms(lambda: x.add_(w2, alpha=1e-30), 5)
+                    b_ms, _ = bound_ms(3 * ell64.R * nb * S, 0.0, dtype)
+                    records.append(dict(name="Y.add_", case=f"Hubbard n_b={nb}",
+                                        dtype=dtype, ms=ms, bound_ms=b_ms,
+                                        share_of_bound=b_ms / ms))
+                    log(f"[kernels] Y.add_(T, alpha=mu) Hubbard n_b={nb} "
+                        f"{dtype}: ms={ms:.4f} bound_ms={b_ms:.4f}")
+                del x, w2, dia, cp
+            del A, vals, cpe
             torch.cuda.empty_cache()
         del ell64
 
@@ -257,6 +366,12 @@ def phase_solve() -> dict:
                 target=target)
 
 
+def write_record(path: str, record: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+
+
 def run(args) -> int:
     import torch
 
@@ -283,6 +398,13 @@ def run(args) -> int:
     records: list = []
     phase_kernels(records)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
+    if args.kernels_only:
+        if args.out:
+            write_record(args.out, dict(device=dict(name=name, count=count,
+                                                    nvidia_smi=smi),
+                                        build_seconds=build.build_seconds,
+                                        checks=records))
+        return 0
 
     solve = phase_solve()
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
@@ -297,11 +419,10 @@ def run(args) -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(device=dict(name=name, count=count, nvidia_smi=smi),
-                           build_seconds=build.build_seconds, checks=records,
-                           solve=solve, kernels=line), f, indent=1)
+        write_record(args.out, dict(device=dict(name=name, count=count,
+                                                nvidia_smi=smi),
+                                    build_seconds=build.build_seconds,
+                                    checks=records, solve=solve, kernels=line))
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -313,6 +434,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="write the full record (every check, the solve) here")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phase (no result line)")
     args = ap.parse_args(argv)
     try:
         return run(args)

@@ -16,6 +16,7 @@ import torch
 from .core.filter_diag import FDState
 from .core.spmv import DistEll
 from .kernels.ops import DiaPlan
+from .kernels.plan import span_of_ell
 
 
 def _one_shard(a: np.ndarray, ndim: int, what: str) -> np.ndarray:
@@ -39,9 +40,10 @@ def dist_ell_from_arrays(cols, vals, D: int | None = None,
         raise NotImplementedError("complex operators are not ported yet, "
                                   "see ROADMAP")
     R = cols.shape[0]
-    return DistEll(cols=torch.tensor(cols, device=device),
-                   vals=torch.tensor(vals, device=device),
-                   R=R, D=R if D is None else int(D))
+    cols_t = torch.tensor(cols, device=device)
+    vals_t = torch.tensor(vals, device=device)
+    return DistEll(cols=cols_t, vals=vals_t, R=R, D=R if D is None else int(D),
+                   span=span_of_ell(cols_t, vals_t))
 
 
 def dia_plan_from_arrays(offsets, dvals, device="cpu") -> DiaPlan:

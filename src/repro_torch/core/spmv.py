@@ -19,7 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import ops, ref
+from ..kernels import ops, plan, ref
+from ..kernels.plan import span_of
 from ..matrices.families import MatrixFamily
 from ..matrices.sparse import CSR
 
@@ -28,12 +29,16 @@ __all__ = ["DistEll", "build_dist_ell", "make_spmv", "make_fused_cheb_step"]
 
 @dataclasses.dataclass
 class DistEll:
-    """The one-shard ELL operator: ``cols`` int32 / ``vals`` [R, W]."""
+    """The one-shard ELL operator: ``cols`` int32 / ``vals`` [R, W], and
+    how far its entries lie from the diagonal (``span = max |col − row|``,
+    recorded at build time; the DIA kernel's slab rule reads the same of
+    its plan)."""
 
     cols: torch.Tensor
     vals: torch.Tensor
     R: int
     D: int
+    span: int = 0
 
     @property
     def W(self) -> int:
@@ -66,18 +71,23 @@ def build_dist_ell(matrix: MatrixFamily | CSR, P_row: int = 1, dtype=None,
     vals_arr = np.zeros((D, W), dtype=vdt)
     cols_arr[rows, slot] = cols
     vals_arr[rows, slot] = vals
+    nz = vals != 0
     return DistEll(cols=torch.as_tensor(cols_arr, device=device),
-                   vals=torch.as_tensor(vals_arr, device=device), R=D, D=D)
+                   vals=torch.as_tensor(vals_arr, device=device), R=D, D=D,
+                   span=span_of(rows[nz], cols[nz]))
 
 
 def make_spmv(ell: DistEll, *, use_kernel: bool = False):
     """Return ``spmv(x) = A·x`` for ``x [R, n_b]`` on the operator's
     device. ``use_kernel`` sends the contraction through ``ops.ell_spmv``
-    (the CUDA kernel for CUDA tensors); otherwise the plain version runs.
-    Both accumulate each row in slot order with one rounding per entry."""
+    (the CUDA kernel for CUDA tensors, which reads the padding-free form
+    built here, once); otherwise the plain version runs. Both accumulate
+    each row in slot order with one rounding per entry."""
     cols, vals = ell.cols, ell.vals
     if use_kernel:
-        return lambda x: ops.ell_spmv(cols, vals, x)
+        compact = (plan.compact_ell(cols, vals)
+                   if cols.device.type == "cuda" else None)
+        return lambda x: ops.ell_spmv(cols, vals, x, compact=compact)
     return lambda x: ref.ell_spmv_ref(cols, vals, x)
 
 
@@ -89,14 +99,17 @@ def make_fused_cheb_step(ell: DistEll, *, use_kernel: bool = False):
     the ELL slot order, and the same epilogue, so the result is unchanged);
     otherwise the SpMV runs first and the epilogue follows in torch, in the
     reference's operation order. A step on the DIA route carries its
-    :class:`~repro_torch.kernels.ops.DiaPlan` as ``step.dia``."""
+    :class:`~repro_torch.kernels.ops.DiaPlan` as ``step.dia``; the plan's
+    compact form and span are built here, once."""
     if use_kernel:
         dia = ops.plan_dia(ell.cols, ell.vals, ell.R, device=ell.vals.device)
         if dia is not None:
             offsets, dvals = dia.offsets, dia.dvals
+            compact, span = dia.compact, dia.span
 
             def step_dia(w1, w2, alpha, beta):
-                return ops.cheb_dia(offsets, dvals, w1, w1, w2, alpha, beta)
+                return ops.cheb_dia(offsets, dvals, w1, w1, w2, alpha, beta,
+                                    compact=compact, span=span)
 
             step_dia.dia = dia
             return step_dia

@@ -39,13 +39,22 @@ launches: dict[str, int] = {"ell_gather": 0, "cheb_dia": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_F64 = ctypes.c_double
+_INT = ctypes.c_int
+_ELL_ARGS = [_VP, _VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I64,
+             _VP]
+_DIA_ARGS = [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _I64, _I64,
+             _I64, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _F64, _F64, _VP]
 _SIGNATURES = {
-    "ell_gather_f64": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
-    "ell_gather_f32": [_VP, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _VP],
-    "cheb_dia_f64": [_VP, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
-                     _I64, ctypes.c_double, ctypes.c_double, _VP],
-    "cheb_dia_f32": [_VP, ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _I64, _I64,
-                     _I64, ctypes.c_double, ctypes.c_double, _VP],
+    # rowptr, cols, vals, tile_rows, tile_max, max_row, x, y0, y, R, nb, c,
+    # stream
+    "ell_gather_f64": _ELL_ARGS,
+    "ell_gather_f32": _ELL_ARGS,
+    # offsets, n_diag, rowptr, ids, vals, vidx, table, n_table, diag,
+    # diag_id, tile_rows, tile_max, max_row, x, w1, w2, y, R, Rx, nb, c,
+    # alpha, beta, stream
+    "cheb_dia_f64": _DIA_ARGS,
+    "cheb_dia_f32": _DIA_ARGS,
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,6 +7,10 @@ on the card ``chip_smoke.py`` holds each CUDA kernel against them.
 backend contracts the reference's scan body ``acc + v·x[c]`` into an FMA,
 so in fp64 the ELL contraction here equals ``repro.kernels.ref`` bit for
 bit; a plain ``acc + v * x`` rounds twice and differs in the last bits.
+
+``ell_spmv_slab_ref`` and ``cheb_dia_compact_ref`` follow the CUDA kernels'
+schedule instead (column slabs, the compact DIA form); the CPU tests hold
+them bit-equal to the two plain versions above them.
 """
 from __future__ import annotations
 
@@ -51,6 +55,44 @@ def cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta):
         acc[lo:hi] = torch.addcmul(acc[lo:hi], dvals[d, lo:hi, None],
                                    x[lo + off:hi + off])
     return cheb_epilogue(acc, w1, w2, alpha, beta)
+
+
+def ell_spmv_slab_ref(cols, vals, x, y0, slab):
+    """``y0 + A·x`` (``y0`` may be None) one column slab of width ``slab``
+    at a time, as the ELL kernel sweeps it."""
+    R, nb = cols.shape[0], x.shape[1]
+    y = torch.empty((R, nb), dtype=torch.result_type(vals, x), device=x.device)
+    for j0 in range(0, nb, slab):
+        j1 = min(j0 + slab, nb)
+        acc = (y0[:, j0:j1] if y0 is not None else
+               torch.zeros((R, j1 - j0), dtype=y.dtype, device=x.device))
+        y[:, j0:j1] = ell_spmv_acc_ref(acc, cols, vals, x[:, j0:j1])
+    return y
+
+
+def cheb_dia_compact_ref(offsets, compact, x, w1, w2, alpha, beta, slab):
+    """The fused DIA step read from the compact form (``plan.CompactDia``)
+    one column slab at a time, as the DIA kernel computes it: per row only
+    the stored entries, in ascending offset order, masked to ``[0, Rx)``."""
+    R, nb = w1.shape
+    Rx = x.shape[0]
+    rp = compact.rowptr.to(torch.int64)
+    counts = rp[1:] - rp[:-1]
+    slot = torch.arange(compact.max_row, device=x.device)
+    live = slot[None, :] < counts[:, None]
+    idx = torch.where(live, rp[:-1, None] + slot[None, :], 0)
+    off = torch.as_tensor(list(offsets), dtype=torch.int64, device=x.device)
+    cols = (torch.arange(R, device=x.device)[:, None]
+            + off[compact.ids[idx].to(torch.int64)])
+    ok = live & (cols >= 0) & (cols < Rx)
+    vals = torch.where(ok, compact.entry_values()[idx], 0)
+    cols = torch.where(ok, cols, 0)
+    y = torch.empty((R, nb), dtype=x.dtype, device=x.device)
+    for j0 in range(0, nb, slab):
+        j1 = min(j0 + slab, nb)
+        acc = ell_spmv_ref(cols, vals, x[:, j0:j1])
+        y[:, j0:j1] = cheb_epilogue(acc, w1[:, j0:j1], w2[:, j0:j1], alpha, beta)
+    return y
 
 
 def cheb_epilogue(y, w1, w2, alpha, beta):
