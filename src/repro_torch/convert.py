@@ -1,8 +1,9 @@
 """Carry the reference's host objects into the port.
 
 The JAX package's operator and solver state, handed over as numpy arrays
-(``np.asarray`` of its device arrays), become the port's tensors, so both
-packages can compute on the same operator and from the same state:
+(``np.asarray`` of its device arrays), become the port's tensors, real or
+complex, so both packages can compute on the same operator and from the
+same state:
 
 * a one-shard ``DistEll``'s ``cols/vals`` ([1, R, W] or [R, W]);
 * a ``DiaPlan``'s ``offsets/dvals`` ([1, n_diag, R] or [n_diag, R]);
@@ -36,9 +37,6 @@ def dist_ell_from_arrays(cols, vals, D: int | None = None,
     """The port's operator from a P = 1 ``DistEll``'s ``cols/vals``."""
     cols = _one_shard(cols, 2, "cols").astype(np.int32)
     vals = _one_shard(vals, 2, "vals")
-    if np.iscomplexobj(vals):
-        raise NotImplementedError("complex operators are not ported yet, "
-                                  "see ROADMAP")
     R = cols.shape[0]
     cols_t = torch.tensor(cols, device=device)
     vals_t = torch.tensor(vals, device=device)
@@ -58,9 +56,6 @@ def fd_state_from_arrays(V, lam, *, iteration: int = 0, total_spmvs: int = 0,
     """An :class:`FDState` at an iteration boundary from ``V [D, N_s]`` and
     the Lanczos interval ``lam``."""
     V = np.asarray(V)
-    if np.iscomplexobj(V):
-        raise NotImplementedError("complex blocks are not ported yet, "
-                                  "see ROADMAP")
     return FDState(V=torch.tensor(V, device=device),
                    lam=(float(lam[0]), float(lam[1])),
                    iteration=iteration, total_spmvs=total_spmvs)

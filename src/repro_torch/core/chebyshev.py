@@ -26,12 +26,15 @@ def chebyshev_filter(spmv, mu, alpha: float, beta: float, V: torch.Tensor,
                      fused_step=None) -> torch.Tensor:
     """Return p[A]V given ``spmv``.
 
-    ``mu`` is a length-(n+1) coefficient array (n >= 2), rounded to V's
-    dtype as the reference does. ``fused_step(w1, w2, alpha, beta)``, when
-    given (:func:`~repro_torch.core.spmv.make_fused_cheb_step`), replaces
-    the inline ``2a·spmv(w1) + 2b·w1 - w2`` step.
+    ``mu`` is a length-(n+1) coefficient array (n >= 2); it and ``alpha``,
+    ``beta`` are rounded to V's real dtype (float64 for a complex128 block,
+    float32 for complex64), as the reference does. ``fused_step(w1, w2,
+    alpha, beta)``, when given
+    (:func:`~repro_torch.core.spmv.make_fused_cheb_step`), replaces the
+    inline ``2a·spmv(w1) + 2b·w1 - w2`` step.
     """
-    np_dt = np.float64 if V.dtype == torch.float64 else np.float32
+    np_dt = (np.float64 if V.dtype in (torch.float64, torch.complex128)
+             else np.float32)
     mu = [float(m) for m in np.asarray(mu, dtype=np_dt)]
     n = len(mu) - 1
     if n < 2:

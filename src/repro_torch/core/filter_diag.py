@@ -7,6 +7,13 @@ run on the same [D, N_s] block. With ``spmv_kernel`` every single SpMV
 every fused filter step runs the DIA kernel where ``ops.plan_dia`` accepts
 the operator.
 
+A complex operator (Exciton, TopIns) solves in complex128 when
+``cfg.dtype`` is ``"float64"`` and in complex64 when it is ``"float32"``;
+``"complex128"`` and ``"complex64"`` are taken as given, a real operator
+included. The start block and the Lanczos vector are drawn real and cast,
+as the reference draws them (``repro/core/filter_diag.py:337``,
+``repro/core/lanczos.py:31``).
+
 The other layouts, the split-phase and compressed halo engines, the s-step
 filter and planned row partitions belong to the horizontal and vertical
 layers, which are not ported yet: asking for them raises.
@@ -110,8 +117,6 @@ def _check_config(cfg: FDConfig) -> None:
         raise _not_ported("a planned (non-identity) row partition")
     if cfg.ortho not in ("tsqr", "svqb"):
         raise ValueError(f"unknown ortho {cfg.ortho!r} (expected tsqr | svqb)")
-    if cfg.dtype not in ("float64", "float32"):
-        raise _not_ported(f"dtype={cfg.dtype!r} (real float64 and float32 only)")
 
 
 class FilterDiag:
@@ -124,13 +129,14 @@ class FilterDiag:
 
     def __init__(self, matrix, cfg: FDConfig, device=None):
         _check_config(cfg)
-        if getattr(matrix, "is_complex", False):
-            raise _not_ported("a complex operator")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.dtype = {"float64": torch.float64, "float32": torch.float32}[cfg.dtype]
         self.D = matrix.shape[0] if hasattr(matrix, "shape") else matrix.D
-        self.ell = build_dist_ell(matrix, 1, dtype=cfg.dtype, device=self.device)
+        # the working dtype: cfg.dtype, promoted to complex for a complex
+        # operator (spmv.value_dtype)
+        self.ell = build_dist_ell(matrix, 1, dtype=cfg.dtype,
+                                  device=self.device)
+        self.dtype = self.ell.vals.dtype
         self.spmv = make_spmv(self.ell, use_kernel=cfg.spmv_kernel)
         # kernelized recurrence step: the fused 2a·A·w1 + 2b·w1 - w2 body
         # (the DIA kernel when the operator has a DIA form) of the filter

@@ -19,7 +19,8 @@ def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
 
     ``spmv`` acts on [D, 1] tensors. The start vector is ``v0`` (numpy or
     tensor, any shape with D entries) when given; otherwise it is drawn
-    from ``generator``. The tridiagonal coefficients are accumulated on the
+    from ``generator``, real, and cast to ``dtype`` (complex too), as the
+    reference draws it. The tridiagonal coefficients are accumulated on the
     host (scalars: one tiny transfer per step).
     """
     if v0 is None:

@@ -48,14 +48,16 @@ _DIA_ARGS = [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _I64, _I64,
 _SIGNATURES = {
     # rowptr, cols, vals, tile_rows, tile_max, max_row, x, y0, y, R, nb, c,
     # stream
-    "ell_gather_f64": _ELL_ARGS,
-    "ell_gather_f32": _ELL_ARGS,
+    **{f"ell_gather_{t}": _ELL_ARGS for t in ("f64", "f32", "c128", "c64")},
     # offsets, n_diag, rowptr, ids, vals, vidx, table, n_table, diag,
     # diag_id, tile_rows, tile_max, max_row, x, w1, w2, y, R, Rx, nb, c,
     # alpha, beta, stream
-    "cheb_dia_f64": _DIA_ARGS,
-    "cheb_dia_f32": _DIA_ARGS,
+    **{f"cheb_dia_{t}": _DIA_ARGS for t in ("f64", "f32", "c128", "c64")},
 }
+
+#: The suffix of each dtype's C entry (``ell_gather_f64``, ``cheb_dia_c128``...).
+ENTRY_SUFFIX = {torch.float64: "f64", torch.float32: "f32",
+                torch.complex128: "c128", torch.complex64: "c64"}
 
 _lib: ctypes.CDLL | None = None
 #: What the last build printed (ptxas registers/spills per kernel), and

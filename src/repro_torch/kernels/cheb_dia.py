@@ -20,7 +20,7 @@ from . import build, plan
 #: Most diagonals one launch takes (the kernel's by-value offset table).
 MAX_DIAGS = 64
 
-_ENTRY = {torch.float64: "cheb_dia_f64", torch.float32: "cheb_dia_f32"}
+_ENTRY = {dt: f"cheb_dia_{sfx}" for dt, sfx in build.ENTRY_SUFFIX.items()}
 
 
 def _ptr(t: torch.Tensor | None):
@@ -34,7 +34,7 @@ def slab_for(dtype: torch.dtype, span: int, n_b: int,
     c = plan.check_slab(slab, n_b)
     if c is not None:
         return c
-    return plan.slab_width(n_b, torch.finfo(dtype).bits // 8, span)
+    return plan.slab_width(n_b, dtype.itemsize, span)
 
 
 def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
@@ -43,13 +43,11 @@ def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
              span: int | None = None,
              slab: int | None = None) -> torch.Tensor:
     """Launch the kernel. ``x [Rx, n_b]`` with Rx >= R (a halo may be
-    appended), ``w1/w2 [R, n_b]``, all of one real dtype, contiguous and
-    on one CUDA device. ``compact`` and ``span`` are those of
+    appended), ``w1/w2 [R, n_b]``, all of one dtype (fp64, fp32,
+    complex128 or complex64; ``alpha`` and ``beta`` are real), contiguous
+    and on one CUDA device. ``compact`` and ``span`` are those of
     ``(offsets, dvals)`` (a ``DiaPlan``'s, built once; built here when
     omitted); ``slab`` forces the slab width."""
-    if any(t.is_complex() for t in (dvals, x, w1, w2)):
-        raise NotImplementedError("cheb_dia: complex operators are not "
-                                  "ported yet, see ROADMAP")
     if x.device.type != "cuda":
         raise ValueError(f"cheb_dia kernel needs CUDA tensors, got {x.device}")
     offsets = [int(o) for o in offsets]
@@ -58,7 +56,7 @@ def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                          f"offsets, got {len(offsets)}")
     if x.dtype not in _ENTRY or any(t.dtype != x.dtype for t in (dvals, w1, w2)):
         raise TypeError("cheb_dia: dvals/x/w1/w2 must share one dtype of "
-                        "float64, float32")
+                        "float64, float32, complex128, complex64")
     R, nb = w1.shape
     if (w2.shape != (R, nb) or dvals.shape != (len(offsets), R)
             or x.ndim != 2 or x.shape[1] != nb or x.shape[0] < R):

@@ -39,6 +39,13 @@
 // memory but the x loads in flight (PERF.md): the registers are
 // capped for 4 CTAs an SM, and a staged band of x rows or narrower slabs,
 // tried, only cost occupancy.
+//
+// Complex operators (Exciton, TopIns) run the same sweep with c128 / c64
+// values (common.cuh): the compact form's table holds complex values, the
+// Chebyshev scalars stay real, the epilogue acts on each plane. At
+// Exciton(L = 30), n_b = 384, complex128 the step takes 6.46 ms, 0.58 of
+// its 3.75 ms bound, at the rule's c = 16 (chip_smoke.py, H100 80GB HBM3,
+// 700 W; PERF.md).
 #include "common.cuh"
 
 namespace repro_torch {
@@ -92,7 +99,7 @@ struct DiaOp {
   const T* w1;
   const T* w2;
   long long Rx;
-  T a2, b2;
+  typename RealOf<T>::type a2, b2;  // 2·alpha, 2·beta (real)
   long long rp_cap, ids_cap, vidx_cap;  // shared bytes of the staged parts
 
   __device__ void init(unsigned char* smem) const {
@@ -166,8 +173,9 @@ struct DiaArgs {
 template <typename T, int VEC, bool TABLE>
 static cudaError_t sweep_dia(const SweepPlan& p, const DiaArgs& a, const T* x,
                              const T* w1, const T* w2, T* y, long long R,
-                             long long Rx, long long nb, long long c, T a2,
-                             T b2, cudaStream_t s) {
+                             long long Rx, long long nb, long long c,
+                             typename RealOf<T>::type a2,
+                             typename RealOf<T>::type b2, cudaStream_t s) {
   // tile_rows, halved while the staged rows would exceed kDiaOpBytes: a
   // halved tile lies inside one of tile_rows rows, so tile_max bounds it
   long long rows = a.tile_rows, rp_cap, ids_cap, vidx_cap, vals_cap;
@@ -195,8 +203,9 @@ static cudaError_t sweep_dia(const SweepPlan& p, const DiaArgs& a, const T* x,
 template <typename T, int VEC>
 static cudaError_t sweep_dia(const SweepPlan& p, const DiaArgs& a, const T* x,
                              const T* w1, const T* w2, T* y, long long R,
-                             long long Rx, long long nb, long long c, T a2,
-                             T b2, cudaStream_t s) {
+                             long long Rx, long long nb, long long c,
+                             typename RealOf<T>::type a2,
+                             typename RealOf<T>::type b2, cudaStream_t s) {
   return a.table != nullptr
              ? sweep_dia<T, VEC, true>(p, a, x, w1, w2, y, R, Rx, nb, c, a2,
                                        b2, s)
@@ -219,7 +228,8 @@ static int launch_cheb_dia(const DiaArgs& a, const void* x_, const void* w1_,
   const T* w1 = static_cast<const T*>(w1_);
   const T* w2 = static_cast<const T*>(w2_);
   T* y = static_cast<T*>(y_);
-  const T a2 = T(2.0 * T(alpha)), b2 = T(2.0 * T(beta));
+  using Real = typename RealOf<T>::type;
+  const Real a2 = Real(2.0 * Real(alpha)), b2 = Real(2.0 * Real(beta));
   const SweepPlan p = plan_sweep<T>(
       nb, c, aligned16(x) && aligned16(w1) && aligned16(w2) && aligned16(y));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -281,3 +291,5 @@ static DiaArgs dia_args(const int* offsets, int n_diag, const void* rowptr,
 
 CHEB_DIA_ENTRY(cheb_dia_f64, double)
 CHEB_DIA_ENTRY(cheb_dia_f32, float)
+CHEB_DIA_ENTRY(cheb_dia_c128, repro_torch::c128)
+CHEB_DIA_ENTRY(cheb_dia_c64, repro_torch::c64)

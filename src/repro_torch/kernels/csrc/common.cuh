@@ -25,10 +25,16 @@
 // sweep is bound by the x loads it keeps in flight.
 //
 // Arithmetic is that of the plain versions: per output element the
-// entries are folded with fma_rn in ascending slot (= offset) order from
-// y0 or 0, entries that are not stored are never visited (bit-neutral for
-// finite x: fma(0, x, acc) == acc), and the Chebyshev epilogue is
-// axpby_sub. So fp64 and fp32 results equal kernels/ref.py bit for bit.
+// entries are folded with mac in ascending slot (= offset) order from y0
+// or 0, entries that are not stored are never visited (bit-neutral for
+// finite x: fma(0, x, acc) == acc, and a complex zero adds ±0 to each
+// plane), and the Chebyshev epilogue is axpby_sub. So results equal
+// kernels/ref.py bit for bit, in fp64, fp32, complex128 and complex64.
+//
+// A complex value is the pair (re, im) as torch lays it out; c128 is one
+// 16-byte vector, c64 one 8-byte one, so the sweep's vector loads carry
+// whole complex values and a complex128 lane has the footprint of an fp64
+// lane with two columns.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,14 +42,57 @@
 
 namespace repro_torch {
 
-// Explicitly fused multiply-add with one rounding: the accumulation chain
-// of every kernel is written with it, so it never depends on what the
-// compiler chooses to contract.
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
+// Complex values, laid out as torch's complex128 / complex64.
+struct __align__(16) c128 {
+  double re, im;
+  c128() = default;
+  __host__ __device__ constexpr c128(double r, double i = 0.0)
+      : re(r), im(i) {}
+};
+struct __align__(8) c64 {
+  float re, im;
+  c64() = default;
+  __host__ __device__ constexpr c64(float r, float i = 0.0f) : re(r), im(i) {}
+};
+
+// The real type of an element type (the Chebyshev scalars' type).
+template <typename T> struct RealOf { using type = T; };
+template <> struct RealOf<c128> { using type = double; };
+template <> struct RealOf<c64> { using type = float; };
+
+// acc + v·x, rounded as the plain versions (and the reference's scan on
+// the CPU) round it; the accumulation chain of every kernel is written
+// with it, in explicitly rounded intrinsics, so it never depends on what
+// the compiler chooses to contract. Real: one fused multiply-add. Complex:
+// each plane of the product one fused multiply-add over a rounded
+// product, fma(vr, xr, −vi·xi) and fma(vi, xr, vr·xi), as XLA's CPU
+// backend contracts the complex product, then one rounded add into each
+// plane of the accumulator: 8 flops an entry (two FMAs, two multiplies,
+// two adds).
+__device__ __forceinline__ double mac(double v, double x, double acc) {
+  return __fma_rn(v, x, acc);
 }
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
+__device__ __forceinline__ float mac(float v, float x, float acc) {
+  return __fmaf_rn(v, x, acc);
+}
+__device__ __forceinline__ c128 mac(c128 v, c128 x, c128 acc) {
+  const double pr = __fma_rn(v.re, x.re, -__dmul_rn(v.im, x.im));
+  const double pi = __fma_rn(v.im, x.re, __dmul_rn(v.re, x.im));
+  return c128(__dadd_rn(acc.re, pr), __dadd_rn(acc.im, pi));
+}
+__device__ __forceinline__ c64 mac(c64 v, c64 x, c64 acc) {
+  const float pr = __fmaf_rn(v.re, x.re, -__fmul_rn(v.im, x.im));
+  const float pi = __fmaf_rn(v.im, x.re, __fmul_rn(v.re, x.im));
+  return c64(__fadd_rn(acc.re, pr), __fadd_rn(acc.im, pi));
+}
+
+__device__ __forceinline__ bool is_zero(double v) { return v == 0.0; }
+__device__ __forceinline__ bool is_zero(float v) { return v == 0.0f; }
+__device__ __forceinline__ bool is_zero(c128 v) {
+  return v.re == 0.0 && v.im == 0.0;
+}
+__device__ __forceinline__ bool is_zero(c64 v) {
+  return v.re == 0.0f && v.im == 0.0f;
 }
 
 // a·y + b·w − z with each product rounded, then the two sums in order:
@@ -56,6 +105,17 @@ __device__ __forceinline__ double axpby_sub(double a, double y, double b,
 __device__ __forceinline__ float axpby_sub(float a, float y, float b, float w,
                                            float z) {
   return __fsub_rn(__fadd_rn(__fmul_rn(a, y), __fmul_rn(b, w)), z);
+}
+// complex y, w, z with real a, b: each plane on its own
+__device__ __forceinline__ c128 axpby_sub(double a, c128 y, double b, c128 w,
+                                          c128 z) {
+  return c128(axpby_sub(a, y.re, b, w.re, z.re),
+              axpby_sub(a, y.im, b, w.im, z.im));
+}
+__device__ __forceinline__ c64 axpby_sub(float a, c64 y, float b, c64 w,
+                                         c64 z) {
+  return c64(axpby_sub(a, y.re, b, w.re, z.re),
+             axpby_sub(a, y.im, b, w.im, z.im));
 }
 
 // ---------------------------------------------------------------- loads --
@@ -114,6 +174,49 @@ template <> struct VecIO<float, 4> {
   }
   __device__ static void st_stream(float* p, const float* v) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  }
+};
+
+template <> struct VecIO<c128, 1> {
+  __device__ static void ld(const c128* p, c128* o) {
+    const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+    o[0] = c128(v.x, v.y);
+  }
+  __device__ static void ld_stream(const c128* p, c128* o) {
+    const double2 v = __ldcs(reinterpret_cast<const double2*>(p));
+    o[0] = c128(v.x, v.y);
+  }
+  __device__ static void st_stream(c128* p, const c128* v) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0].re, v[0].im));
+  }
+};
+template <> struct VecIO<c64, 1> {
+  __device__ static void ld(const c64* p, c64* o) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = c64(v.x, v.y);
+  }
+  __device__ static void ld_stream(const c64* p, c64* o) {
+    const float2 v = __ldcs(reinterpret_cast<const float2*>(p));
+    o[0] = c64(v.x, v.y);
+  }
+  __device__ static void st_stream(c64* p, const c64* v) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0].re, v[0].im));
+  }
+};
+template <> struct VecIO<c64, 2> {
+  __device__ static void ld(const c64* p, c64* o) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = c64(v.x, v.y);
+    o[1] = c64(v.z, v.w);
+  }
+  __device__ static void ld_stream(const c64* p, c64* o) {
+    const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
+    o[0] = c64(v.x, v.y);
+    o[1] = c64(v.z, v.w);
+  }
+  __device__ static void st_stream(c64* p, const c64* v) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v[0].re, v[0].im, v[1].re, v[1].im));
   }
 };
 
@@ -206,8 +309,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
                const Sweep sw) {
   extern __shared__ __align__(16) unsigned char smem[];
   // entries whose x loads are in flight at once: 8 scalars for a lane with
-  // one scalar column (n_b = 1), else 4 vectors a lane
-  constexpr int U = VEC == 1 && NV == 1 ? 8 : 4 / NV;
+  // one scalar column (n_b = 1; 4 complex128, which take twice the
+  // registers), else 4 vectors a lane
+  constexpr int U =
+      VEC == 1 && NV == 1 ? (sizeof(T) > 8 ? 4 : 8) : 4 / NV;
   const long long slab = blockIdx.x / sw.n_rt;
   const long long r0 = (blockIdx.x % sw.n_rt) * sw.tile_rows;
   const long long r1 = r0 + sw.tile_rows < sw.R ? r0 + sw.tile_rows : sw.R;
@@ -264,7 +369,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
             for (int q = 0; q < NV; ++q)
 #pragma unroll
               for (int w = 0; w < VEC; ++w)
-                acc[q][w] = fma_rn(val[u], xv[u][q][w], acc[q][w]);
+                acc[q][w] = mac(val[u], xv[u][q][w], acc[q][w]);
           }
       }
 #pragma unroll

@@ -37,7 +37,8 @@
 // finite x), so results equal the plain version bit for bit. The ragged
 // edge (R, n_b and the last slab of any size) is masked here. Wide rows
 // shrink the tile (sweep_ell), and a row too wide to stage alone is read
-// where it lies, so any W is taken.
+// where it lies, so any W is taken. Complex128 and complex64 blocks run
+// the same sweep with c128 / c64 values (common.cuh::mac).
 #include "common.cuh"
 
 namespace repro_torch {
@@ -53,7 +54,7 @@ struct EllView {  // the tile's rows, staged or where they lie
   }
   __device__ bool entry(int e, long long, long long& col, T& v) const {
     v = vals[e];
-    if (v == T(0)) return false;
+    if (is_zero(v)) return false;
     col = cols[e];
     return true;
   }
@@ -184,3 +185,5 @@ static int launch_ell_gather(const EllArgs& a, const void* x_,
 
 ELL_GATHER_ENTRY(ell_gather_f64, double)
 ELL_GATHER_ENTRY(ell_gather_f32, float)
+ELL_GATHER_ENTRY(ell_gather_c128, repro_torch::c128)
+ELL_GATHER_ENTRY(ell_gather_c64, repro_torch::c64)

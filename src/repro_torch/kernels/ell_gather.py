@@ -15,7 +15,7 @@ import torch
 
 from . import build, plan
 
-_ENTRY = {torch.float64: "ell_gather_f64", torch.float32: "ell_gather_f32"}
+_ENTRY = {dt: f"ell_gather_{sfx}" for dt, sfx in build.ENTRY_SUFFIX.items()}
 
 
 def slab_for(n_b: int, slab: int | None = None) -> int:
@@ -35,18 +35,16 @@ def ell_gather_spmv(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     """Launch the kernel: ``y0 + A·x`` (``y0 = 0`` when omitted).
 
     ``cols`` int32 [R, W] indexing rows of ``x``; ``vals`` [R, W] and
-    ``x`` [Rx, n_b] of one real dtype (fp64 or fp32); all contiguous and on
-    one CUDA device. ``compact`` is ``plan.compact_ell(cols, vals)`` (built
-    once per operator; built here when omitted); ``slab`` forces the slab
-    width."""
-    if x.is_complex() or vals.is_complex():
-        raise NotImplementedError("ell_gather: complex operators are not "
-                                  "ported yet, see ROADMAP")
+    ``x`` [Rx, n_b] of one dtype (fp64, fp32, complex128 or complex64);
+    all contiguous and on one CUDA device. ``compact`` is
+    ``plan.compact_ell(cols, vals)`` (built once per operator; built here
+    when omitted); ``slab`` forces the slab width."""
     if x.device.type != "cuda":
         raise ValueError(f"ell_gather kernel needs CUDA tensors, got {x.device}")
     if vals.dtype not in _ENTRY or x.dtype != vals.dtype:
         raise TypeError(f"ell_gather: vals {vals.dtype} / x {x.dtype} "
-                        "(expected one of float64, float32)")
+                        "(expected one of float64, float32, complex128, "
+                        "complex64)")
     if cols.dtype != torch.int32:
         raise TypeError(f"ell_gather: cols must be int32, got {cols.dtype}")
     R, W = cols.shape

@@ -89,15 +89,22 @@ def plan_dia(cols, vals, R: int, *, max_diags: int = DIA_MAX_DIAGS,
              device=None) -> DiaPlan | None:
     """Extract the DIA form of a one-shard ELL block, or ``None``.
 
-    ``cols/vals`` are [R, W] numpy arrays or tensors. Refuses (caller keeps
-    the ELL path) when the values are not real floating, a column lies
-    outside ``[0, R)`` (the block has halo entries), or the block needs more
-    than ``max_diags`` distinct diagonals. One scatter places every stored
-    entry, however many rows there are.
+    ``cols/vals`` are [R, W] numpy arrays or tensors, real or complex.
+    Refuses (caller keeps the ELL path) when the values are not floating, a
+    column lies outside ``[0, R)`` (the block has halo entries), or the
+    block needs more than ``max_diags`` distinct diagonals. One scatter
+    places every stored entry, however many rows there are.
+
+    Here the port differs from the reference on purpose: the reference's
+    ``plan_dia`` refuses complex values, so its complex solves run the ELL
+    product and the XLA epilogue. The port sends a complex operator to its
+    DIA kernel, which computes that same function bit for bit (ascending
+    offsets are the ELL slot order, and the complex product is rounded as
+    the reference's scan rounds it).
     """
     cols = cols.cpu().numpy() if isinstance(cols, torch.Tensor) else np.asarray(cols)
     vals = vals.cpu().numpy() if isinstance(vals, torch.Tensor) else np.asarray(vals)
-    if not np.issubdtype(vals.dtype, np.floating):
+    if not np.issubdtype(vals.dtype, np.inexact):
         return None
     Rb, W = cols.shape
     if W == 0 or Rb != R:

@@ -56,10 +56,12 @@ ELL_TILE_ROWS = 256
 def tile_max(rowptr: torch.Tensor, rows: int) -> int:
     """Most entries in ``rows`` rows from a multiple of ``rows``."""
     rp = rowptr.to(torch.int64)
-    if rp.numel() < 2:
+    R = rp.numel() - 1
+    if R < 1:
         return 0
-    ends = torch.cat([rp[rows::rows], rp[-1:]])
-    return int((ends - rp[:-1:rows]).max())
+    starts = torch.arange(0, R, rows, device=rp.device)
+    ends = torch.clamp(starts + rows, max=R)
+    return int((rp[ends] - rp[starts]).max())
 
 
 def row_pointers(counts: torch.Tensor) -> torch.Tensor:
@@ -106,7 +108,8 @@ class CompactDia:
 
     An entry's value is ``vals[e]``; or, when the values off the main
     diagonal take at most ``TABLE_MAX`` distinct values (lattice models
-    have one or a few: ±t, J/2), ``table[vidx[e]]`` (``table[0]`` when
+    have one or a few: ±t, J/2; Exciton −t and its spin-orbit entries,
+    TopIns its hop blocks' entries), ``table[vidx[e]]`` (``table[0]`` when
     ``vidx`` is None), and on the main diagonal (id ``diag_id``)
     ``diag[r]``. The table form reads ≈ 2 bytes an entry instead of 1 + S."""
 
@@ -177,6 +180,18 @@ def diag_id_of(offsets) -> int | None:
     return offsets.index(0) if 0 in offsets else None
 
 
+def _unique(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distinct values of ``v`` (ascending; complex ones by real, then
+    imaginary part) and each entry's index among them. ``torch.unique``
+    takes no complex dtype, so a complex ``v`` goes through the rows of
+    its real view."""
+    if not v.is_complex():
+        return torch.unique(v, return_inverse=True)
+    rows, inverse = torch.unique(torch.view_as_real(v), dim=0,
+                                 return_inverse=True)
+    return torch.view_as_complex(rows.contiguous()), inverse
+
+
 def compact_dia(dvals: torch.Tensor, diag_id: int | None = None) -> CompactDia:
     """The compact form of ``dvals [n_diag, R]`` (on its device);
     ``diag_id`` is the row of ``dvals`` that holds offset 0, if any."""
@@ -191,14 +206,15 @@ def compact_dia(dvals: torch.Tensor, diag_id: int | None = None) -> CompactDia:
     base = dict(rowptr=row_pointers(counts), ids=ids.to(torch.uint8),
                 nnz=nnz, max_row=int(counts.max()) if R else 0)
     main = ids == (-1 if diag_id is None else diag_id)
-    table = torch.unique(vals[~main])
+    table, inverse = _unique(vals[~main])
     if len(table) > TABLE_MAX:
         return CompactDia(vals=vals, **base)
     if not len(table):
         table = vals.new_zeros(1)
     vidx = None
     if len(table) > 1:
-        vidx = torch.where(main, 0, torch.searchsorted(table, vals)).to(torch.uint8)
+        vidx = torch.zeros(nnz, dtype=torch.uint8, device=vals.device)
+        vidx[~main] = inverse.to(torch.uint8)
     if diag_id is None:
         return CompactDia(table=table, vidx=vidx, **base)
     return CompactDia(table=table, vidx=vidx, diag=dvals[diag_id].contiguous(),

@@ -3,10 +3,20 @@
 They run on any device: on the CPU they are what ``ops`` dispatches to,
 on the card ``chip_smoke.py`` holds each CUDA kernel against them.
 
-``torch.addcmul`` computes ``acc + v·x`` with one rounding, as XLA's CPU
-backend contracts the reference's scan body ``acc + v·x[c]`` into an FMA,
-so in fp64 the ELL contraction here equals ``repro.kernels.ref`` bit for
-bit; a plain ``acc + v * x`` rounds twice and differs in the last bits.
+Each entry is folded into the accumulator by :func:`mac`, in the rounding
+of the reference's scan body ``acc + v·x[c]`` on the CPU:
+
+* real: ``torch.addcmul``, ``acc + v·x`` with one rounding, as XLA's CPU
+  backend contracts that body into an FMA, so in fp64 the ELL contraction
+  here equals ``repro.kernels.ref`` bit for bit (a plain ``acc + v * x``
+  rounds twice and differs in the last bits);
+* complex: the product's planes as XLA's CPU backend contracts them,
+  ``fma(vr, xr, −(vi·xi))`` and ``fma(vi, xr, vr·xi)``, then one rounded
+  add into each plane of the accumulator (found by matching the reference
+  on random complex blocks; complex ``addcmul`` on the CPU rounds each
+  product instead and differs in the last bits). It is spelled here as
+  separate torch operations on the real planes, each FMA an ``addcmul``,
+  so that the plain version computes the same function on both devices.
 
 ``ell_spmv_slab_ref`` and ``cheb_dia_compact_ref`` follow the CUDA kernels'
 schedule instead (column slabs, the compact DIA form); the CPU tests hold
@@ -17,12 +27,26 @@ from __future__ import annotations
 import torch
 
 
+def mac(acc, v, x):
+    """``acc + v·x`` (``v`` broadcast over ``x``) in the reference's
+    rounding: one fused multiply-add when real; when complex, each plane
+    of the product one fused multiply-add over a rounded product, then one
+    rounded add (module docstring)."""
+    if not acc.is_complex():
+        return torch.addcmul(acc, v, x)
+    v, x = v.to(acc.dtype), x.to(acc.dtype)
+    vr, vi, xr, xi = v.real, v.imag, x.real, x.imag
+    pr = torch.addcmul(-(vi * xi), vr, xr)
+    pi = torch.addcmul(vr * xi, vi, xr)
+    return torch.complex(acc.real + pr, acc.imag + pi)
+
+
 def ell_spmv_acc_ref(acc, cols, vals, x):
     """Accumulator-threaded ELL contraction: one slot per step into
     ``acc``, so per output element the addition order is the slot order.
     ``cols/vals [R, W]``, ``x [Rx, nb]``, ``acc [R, nb]``."""
     for w in range(cols.shape[1]):
-        acc = torch.addcmul(acc, vals[:, w, None], x.index_select(0, cols[:, w]))
+        acc = mac(acc, vals[:, w, None], x.index_select(0, cols[:, w]))
     return acc
 
 
@@ -52,8 +76,8 @@ def cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta):
         lo, hi = max(0, -off), min(R, Rx - off)
         if lo >= hi:
             continue
-        acc[lo:hi] = torch.addcmul(acc[lo:hi], dvals[d, lo:hi, None],
-                                   x[lo + off:hi + off])
+        acc[lo:hi] = mac(acc[lo:hi], dvals[d, lo:hi, None],
+                         x[lo + off:hi + off])
     return cheb_epilogue(acc, w1, w2, alpha, beta)
 
 
@@ -99,5 +123,11 @@ def cheb_epilogue(y, w1, w2, alpha, beta):
     """``2a·y + 2b·w1 − w2`` rounded as the reference's fused step body
     ``2.0 * a * y + 2.0 * b * w1 - w2`` is on the CPU: each product
     rounded, then the two sums in order (XLA does not contract this
-    expression into an FMA)."""
+    expression into an FMA). ``alpha`` and ``beta`` are real, so on a
+    complex block each plane is scaled on its own: the same rounding,
+    spelled on the planes so that no backend forms a complex product."""
+    if y.is_complex():
+        return torch.complex(
+            cheb_epilogue(y.real, w1.real, w2.real, alpha, beta),
+            cheb_epilogue(y.imag, w1.imag, w2.imag, alpha, beta))
     return 2.0 * alpha * y + 2.0 * beta * w1 - w2

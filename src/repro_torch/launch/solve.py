@@ -5,6 +5,10 @@ layout (the port's counterpart of ``repro.launch.solve``).
       --params n_sites=12,n_fermions=6,U=25,ranpot=1 --n-target 16 \\
       --n-search 512 --target -20 --layout stack --spmv-kernel
 
+Every family of ``repro_torch.matrices`` is taken: Hubbard, SpinChainXXZ,
+Exciton and TopIns (complex; the fused step runs the DIA kernel), RoadNet
+and HubNet (no DIA form; the ELL kernel and the epilogue).
+
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. Prints the converged count, iterations, SpMVs, eigenvalues and
 the launches of each CUDA kernel.
@@ -18,7 +22,7 @@ import numpy as np
 
 from ..core import FDConfig, FilterDiag
 from ..kernels import build
-from ..matrices import get_family
+from ..matrices import available_families, get_family
 
 
 def parse_params(s: str) -> dict:
@@ -36,8 +40,7 @@ def parse_params(s: str) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
-    ap.add_argument("--family", required=True,
-                    choices=["Hubbard", "SpinChainXXZ"])
+    ap.add_argument("--family", required=True, choices=available_families())
     ap.add_argument("--params", default="")
     ap.add_argument("--n-target", type=int, default=8)
     ap.add_argument("--n-search", type=int, default=32)
@@ -51,10 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spmv-kernel", action="store_true",
                     help="run every SpMV in the CUDA ELL kernel and every "
                          "fused Chebyshev step in the CUDA DIA kernel where "
-                         "the operator has a DIA form (<= 64 diagonals); "
-                         "on the CPU the kernels' plain versions run")
+                         "the operator has a DIA form (<= 64 diagonals), "
+                         "else in the ELL kernel and a torch epilogue; on "
+                         "the CPU the kernels' plain versions run")
     ap.add_argument("--dtype", default="float64",
-                    choices=["float64", "float32"])
+                    choices=["float64", "float32"],
+                    help="working precision; a complex family (Exciton, "
+                         "TopIns) solves in complex128 / complex64")
     ap.add_argument("--ortho", default="tsqr", choices=["tsqr", "svqb"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the solve runs; 'cuda' with no card raises")

@@ -100,6 +100,12 @@ class Hubbard(MatrixFamily):
         out_v.append(np.full(tgt_up.shape, -self.t))
         return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
 
+    def spectral_bounds_hint(self):
+        w = 2 * self.t * self.n_sites  # loose kinetic bound
+        lo = -w - self.ranpot * 2 * self.n_sites
+        hi = w + self.U * min(self.n_fermions, self.n_sites) + self.ranpot * 2 * self.n_sites
+        return (lo, hi)
+
     def describe(self) -> str:
         return (
             f"Hubbard,n_sites={self.n_sites},n_fermions={self.n_fermions} "

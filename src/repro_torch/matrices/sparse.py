@@ -1,5 +1,6 @@
-"""Minimal host-side CSR (numpy): the explicit-matrix input of the solver
-and the host re-check of returned eigenpairs."""
+"""Minimal host-side CSR (numpy, real or complex values): the
+explicit-matrix input of the solver and the host re-check of returned
+eigenpairs."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +16,7 @@ class CSR:
 
     indptr: np.ndarray  # int64, shape (D+1,)
     indices: np.ndarray  # int64, shape (nnz,)
-    data: np.ndarray | None  # float64 or None
+    data: np.ndarray | None  # float64/complex128 or None
     shape: tuple[int, int]
 
     def row_entries(self, rows: np.ndarray):
@@ -32,6 +33,14 @@ class CSR:
         out = np.zeros((D0, D1), dtype=self.data.dtype if self.data is not None else np.float64)
         rows = np.repeat(np.arange(D0), np.diff(self.indptr))
         out[rows, self.indices] = 1.0 if self.data is None else self.data
+        return out
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """Reference (numpy) SpMV / SpMMV, x of shape (D,) or (D, n_b)."""
+        rows = np.repeat(np.arange(self.shape[0]), np.diff(self.indptr))
+        contrib = self.data[:, None] * x[self.indices] if x.ndim == 2 else self.data * x[self.indices]
+        out = np.zeros((self.shape[0],) + x.shape[1:], dtype=np.result_type(self.data, x))
+        np.add.at(out, rows, contrib)
         return out
 
     def to_scipy(self):

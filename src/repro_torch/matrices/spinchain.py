@@ -79,5 +79,10 @@ class SpinChainXXZ(MatrixFamily):
             out_v.append(np.full(sel.shape, 0.5 * self.Jxy))
         return np.concatenate(out_r), np.concatenate(out_c), np.concatenate(out_v)
 
+    def spectral_bounds_hint(self):
+        nb = self.n_sites - 1
+        w = 0.5 * abs(self.Jxy) * nb + 0.25 * abs(self.Jz) * nb
+        return (-w, w)
+
     def describe(self) -> str:
         return f"SpinChainXXZ,n_sites={self.n_sites},n_up={self.n_up} (D={self.D})"

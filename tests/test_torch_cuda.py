@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, against their plain versions.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA device
-(the kernels have no CPU mode). On a machine with a card:
+(the kernels have no CPU mode). Each grid runs in fp64, fp32, complex128
+and complex64 (the dtypes are parametrized in that order). On a machine
+with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -13,9 +15,11 @@ import torch
 
 from repro_torch.core import FDConfig, FilterDiag
 from repro_torch.kernels import build, ops, plan, ref
-from repro_torch.matrices import Hubbard
+from repro_torch.matrices import Exciton, Hubbard, RoadNet, TopIns
 
 pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float64, torch.float32, torch.complex128, torch.complex64]
 
 
 @pytest.fixture
@@ -26,10 +30,19 @@ def card():
 
 
 def _tol(dtype):
-    return 1e-13 if dtype == torch.float64 else 1e-5
+    return 1e-13 if dtype in (torch.float64, torch.complex128) else 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def _np_randn(rng, shape, dtype):
+    """Standard normal numpy values of ``dtype``'s kind (complex: both
+    planes drawn)."""
+    a = rng.standard_normal(shape)
+    if dtype.is_complex:
+        a = a + 1j * rng.standard_normal(shape)
+    return a
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("R,Rx,W,nb", [(1000, 1500, 9, 1), (777, 777, 13, 64),
                                        (513, 600, 5, 100)])
 def test_ell_gather_kernel_vs_plain(card, R, Rx, W, nb, dtype):
@@ -51,12 +64,12 @@ def test_ell_gather_kernel_vs_plain(card, R, Rx, W, nb, dtype):
     assert (got0 - want0).abs().max() <= _tol(dtype) * want0.abs().max()
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_cheb_dia_kernel_vs_plain(card, dtype):
     rng = np.random.default_rng(1)
     R, Rx, nb = 1000, 1100, 70
     offsets = (-300, -9, -1, 0, 1, 9, 300, 650)
-    dv = rng.standard_normal((len(offsets), R))
+    dv = _np_randn(rng, (len(offsets), R), dtype)
     idx = np.arange(R)
     for d, o in enumerate(offsets):
         dv[d, (idx + o < 0) | (idx + o >= Rx)] = 0.0
@@ -95,7 +108,7 @@ def _far_ell(card, R, Rx, W, dtype, seed):
     return cols, vals
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb,c", SLAB_GRID)
 def test_ell_gather_slabs_bitwise(card, nb, c, dtype):
     """The ELL kernel at forced slab widths (and the rule's), with and
@@ -115,7 +128,7 @@ def test_ell_gather_slabs_bitwise(card, nb, c, dtype):
     assert torch.equal(got0, ref.ell_spmv_ref(cols, vals, x))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb", [1, 8])
 @pytest.mark.parametrize("R,W", [(300, 100), (16, 30_000)])
 def test_ell_gather_wide_rows_bitwise(card, R, W, nb, dtype):
@@ -124,7 +137,8 @@ def test_ell_gather_wide_rows_bitwise(card, R, W, nb, dtype):
     n_b = 1 (a pass of 256 rows ≈ 230 KB in fp64) halves the tile, and
     W = 30,000 (one row ≈ 270 KB in fp64, more than the 227 KB a block
     can have) is read where it lies, or in fp32 (≈ 180 KB) staged as a
-    tile of one row. Each is torch.equal to the plain version."""
+    tile of one row; complex128 rows (20 bytes an entry) are wider still.
+    Each is torch.equal to the plain version."""
     Rx = 40_000
     g = torch.Generator(device=card).manual_seed(W + nb)
     cols = torch.randint(0, Rx, (R, W), generator=g, device=card,
@@ -138,7 +152,7 @@ def test_ell_gather_wide_rows_bitwise(card, R, W, nb, dtype):
     assert torch.equal(got, ref.ell_spmv_acc_ref(y0, cols, vals, x))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb,c", SLAB_GRID)
 def test_cheb_dia_slabs_bitwise(card, nb, c, dtype):
     """The DIA kernel over the compact form at forced slab widths (and
@@ -147,7 +161,7 @@ def test_cheb_dia_slabs_bitwise(card, nb, c, dtype):
     rng = np.random.default_rng(nb + (c or 0))
     R, Rx = 1037, 1100
     offsets = (-700, -97, -9, -1, 0, 1, 9, 97, 700, 1090)
-    dv = rng.standard_normal((len(offsets), R))
+    dv = _np_randn(rng, (len(offsets), R), dtype)
     idx = np.arange(R)
     for d, o in enumerate(offsets):
         dv[d, (idx + o < 0) | (idx + o >= Rx)] = 0.0
@@ -216,3 +230,66 @@ def test_solve_goes_through_both_kernels(card):
         assert np.abs(w - ev).min() < 1e-7
     assert build.launches["ell_gather"] >= cfg.lanczos_steps
     assert build.launches["cheb_dia"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["complex128", "complex64"])
+@pytest.mark.parametrize("fam", [Exciton(L=5), TopIns(8)])
+def test_complex_operator_steps_bitwise(card, fam, dtype):
+    """A complex lattice operator (its compact DIA form holds the values
+    off the main diagonal in a table) through the main path's SpMV and
+    fused step, kernels on: torch.equal to the plain versions at n_b = 1
+    and at a ragged n_b, and both kernels launched. TopIns(8) has
+    R = 2,048, a multiple of both kernels' tile rows."""
+    from repro_torch.core import build_dist_ell, make_fused_cheb_step, make_spmv
+
+    ell = build_dist_ell(fam, 1, dtype=dtype, device=card)
+    dia = ops.plan_dia(ell.cols, ell.vals, ell.R, device=card)
+    assert dia is not None and dia.compact.table is not None
+    spmv = make_spmv(ell, use_kernel=True)
+    step = make_fused_cheb_step(ell, use_kernel=True)
+    assert hasattr(step, "dia")
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device=card).manual_seed(fam.D)
+    for nb in (1, 37):
+        x, w2 = (torch.randn((ell.R, nb), generator=g, device=card, dtype=tdt)
+                 for _ in range(2))
+        n0 = dict(build.launches)
+        y = spmv(x)
+        s = step(x, w2, 0.31, -0.27)
+        torch.cuda.synchronize()
+        assert build.launches["ell_gather"] == n0["ell_gather"] + 1
+        assert build.launches["cheb_dia"] == n0["cheb_dia"] + 1
+        assert torch.equal(y, ref.ell_spmv_ref(ell.cols, ell.vals, x))
+        assert torch.equal(s, ref.cheb_dia_ref(dia.offsets, dia.dvals, x, x, w2,
+                                               0.31, -0.27))
+
+
+def test_complex_solve_goes_through_both_kernels(card):
+    """An Exciton solve (complex128) with the kernels on launches both
+    kernels and matches dense eigh."""
+    mat = Exciton(L=2)
+    w = np.linalg.eigvalsh(mat.build_csr().to_dense())
+    build.reset_launches()
+    cfg = FDConfig(n_target=4, n_search=16, target=float(w[0]) - 0.1,
+                   tol=1e-8, max_iters=40, layout="stack", spmv_kernel=True)
+    res = FilterDiag(mat, cfg).solve()
+    assert res.n_converged >= 4
+    np.testing.assert_allclose(np.sort(res.eigenvalues)[:4], w[:4], atol=1e-7)
+    assert build.launches["ell_gather"] >= cfg.lanczos_steps
+    assert build.launches["cheb_dia"] > 0
+
+
+def test_graph_solve_takes_the_ell_route(card):
+    """RoadNet has no DIA form: a kernel-on solve runs every fused step as
+    the ELL kernel plus the torch epilogue (no DIA launch) and matches
+    dense eigh at the upper edge."""
+    mat = RoadNet(n=4000, w=2, m=256, k=4)
+    w = np.linalg.eigvalsh(mat.build_csr().to_dense())
+    build.reset_launches()
+    cfg = FDConfig(n_target=4, n_search=16, target=float(w[-1]) + 0.1,
+                   tol=1e-8, max_iters=40, layout="stack", spmv_kernel=True)
+    res = FilterDiag(mat, cfg).solve()
+    assert res.n_converged >= 4
+    np.testing.assert_allclose(np.sort(res.eigenvalues)[-4:], w[-4:], atol=1e-7)
+    assert build.launches["cheb_dia"] == 0
+    assert build.launches["ell_gather"] > cfg.lanczos_steps

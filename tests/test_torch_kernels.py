@@ -183,11 +183,13 @@ def test_cheb_dia_equals_ell_step_bitwise():
 
 @pytest.mark.parametrize("n_diag,halo,dtype", [
     (5, False, np.float64), (64, False, np.float32), (65, False, np.float64),
-    (5, True, np.float64), (5, False, np.complex128),
+    (5, True, np.float64), (5, False, np.complex128), (64, False, np.complex128),
 ])
 def test_plan_dia_matches_reference(n_diag, halo, dtype):
     """The vectorized planner equals the reference's per-entry loop,
-    refusals included (> 64 diagonals, halo columns, complex values)."""
+    refusals included (> 64 diagonals, halo columns). Complex values are
+    the one place the port plans where the reference refuses: its plan of
+    a complex block is the reference's plan of each real plane."""
     rng = np.random.default_rng(n_diag)
     R, W = 300, 6
     offs = rng.choice(np.arange(-150, 150), size=n_diag, replace=False)
@@ -203,6 +205,20 @@ def test_plan_dia_matches_reference(n_diag, halo, dtype):
     dup = np.zeros_like(cols, dtype=bool)
     dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
     cols, vals = srt.astype(np.int32), np.where(dup, 0, vals)
+    if np.iscomplexobj(vals):
+        vals = vals + 1j * rng.standard_normal((R, W))
+        vals[rng.random((R, W)) < 0.2] = 0.0
+        vals = np.where(dup, 0, vals)
+        assert jops.plan_dia(cols[None], vals[None], R) is None
+        got = ops.plan_dia(cols, vals, R)
+        for part, plane in ((np.real, "real"), (np.imag, "imag")):
+            want = jops.plan_dia(cols[None], part(vals)[None], R)
+            assert (got is None) == (want is None)
+            if want is not None:
+                assert got.offsets == want.offsets
+                assert np.array_equal(getattr(got.dvals, plane).numpy(),
+                                      np.asarray(want.dvals)[0])
+        return
     want = jops.plan_dia(cols[None], vals[None], R)
     got = ops.plan_dia(cols, vals, R)
     if want is None:
@@ -226,7 +242,11 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_kernel_wrappers_refuse_cpu_and_complex():
-    """The CUDA wrappers launch or raise; nothing falls back."""
+    """The CUDA wrappers launch or raise; nothing falls back. Complex
+    operands are taken (the kernels have complex128 and complex64
+    entries): on the CPU the wrappers refuse them for their device alone,
+    and ``ops`` sends them to the plain versions, which compute the
+    product."""
     cols = torch.zeros((4, 1), dtype=torch.int32)
     vals = torch.ones((4, 1), dtype=torch.float64)
     x = torch.ones((4, 2), dtype=torch.float64)
@@ -234,7 +254,14 @@ def test_kernel_wrappers_refuse_cpu_and_complex():
         cuda_ell(cols, vals, x)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_cheb_dia((0,), vals.T.contiguous(), x, x, x, 1.0, 0.0)
-    with pytest.raises(NotImplementedError, match="complex"):
-        cuda_ell(cols, vals.to(torch.complex128), x.to(torch.complex128))
-    with pytest.raises(NotImplementedError, match="complex"):
-        cuda_cheb_dia((0,), vals.T.to(torch.complex128), x, x, x, 1.0, 0.0)
+    cv, cx = vals.to(torch.complex128) * (2 - 1j), x.to(torch.complex128) * 1j
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ell(cols, cv, cx)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cheb_dia((0,), cv.T.contiguous(), cx, cx, cx, 1.0, 0.0)
+    before = dict(build.launches)
+    want = torch.full((4, 2), (2 - 1j) * 1j, dtype=torch.complex128)
+    assert torch.equal(ops.ell_spmv(cols, cv, cx), want)
+    assert torch.equal(ops.cheb_dia((0,), cv.T.contiguous(), cx, cx, cx,
+                                    0.5, 0.0), want - cx)
+    assert build.launches == before

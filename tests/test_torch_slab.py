@@ -160,6 +160,19 @@ def test_compact_ell_keeps_stored_entries_in_slot_order(key):
                        ref.ell_spmv_ref(cols, vals, x))
 
 
+@pytest.mark.parametrize("R", [1, 127, 128, 256, 300, 1024])
+@pytest.mark.parametrize("rows", [1, 128, 256])
+def test_tile_max_covers_every_tile(R, rows):
+    """``tile_max`` is the most entries in any ``rows`` rows from a
+    multiple of ``rows``, when R is a multiple of ``rows`` too (TopIns(40),
+    R = 256,000 = 2,000 · 128, once made the last tile's bound run off the
+    row pointers)."""
+    counts = torch.as_tensor(np.random.default_rng(R + rows).integers(0, 9, R))
+    rp = plan.row_pointers(counts)
+    want = max(int(counts[r:r + rows].sum()) for r in range(0, R, rows))
+    assert plan.tile_max(rp, rows) == want
+
+
 # -------------------------------------------------------- slab rule --
 
 @pytest.mark.parametrize("S", [8, 4])
