@@ -31,7 +31,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    Exciton n_b = 384 complex128, the step; each held to the plain version)
    are what ``plan.SLAB_ROW_BYTES`` is set from, and the filter's
    ``Y.add_(T, alpha=mu)`` is timed at both steps' shapes;
-4. solves — ``repro_torch.launch.solve`` in-process, kernels on, each with
+   The epilogue entry of ``ell_gather`` (``ell_gather_cheb``: the
+   product and the Chebyshev step's ``2a·y + 2b·w1 − w2`` in one launch)
+   is held bit for bit to its plain version in fp64 and complex128 at
+   Hubbard n_b = 512, RoadNet n_b = 64 and Exciton n_b = 384 (complex64
+   ≤ 1e-5), against the same cuSPARSE product;
+4. engines — the horizontal layer on the card: Hubbard(12,6) in fp64 at
+   n_b = 512 and Exciton(L=30) in complex128 at n_b = 384 at P = 4 row
+   shards, and RoadNet(48000) in fp64 at n_b = 64 at P = 8 (the P = 8
+   solve's shape), each of the eight halo engines (a2a plain and split-phase;
+   compressed cyclic and matching, plain, split-phase and pipelined)
+   with its SpMV, fused step and exchange timed, held bit for bit to the
+   a2a engine (and that one to the same engine from the plain versions
+   on the card), the split-phase steps repeated; its bytes equal to the
+   prediction (a2a ``P·P·L·n_b·S``, compressed ``P·H·n_b·S``); L, H,
+   Σ n_vc, χ and the halo share printed. Then TSQR of a random
+   [853,776 × 512] block at P = 4 (‖V − QR‖/‖V‖ ≤ 1e-13, ‖QᵀQ − I‖ ≤
+   1e-12, |diag R| equal to the one-shard QR's to 1e-10) and a degree-32
+   filter at P = 4 against the one-shard DIA route (≤ 1e-10 of max|Y|).
+   The exchange on one card is a device copy, not a network transfer;
+5. solves — ``repro_torch.launch.solve`` in-process, kernels on, each with
    the launch counts set to 0 just before it and read just after, every
    returned pair re-checked on the host against a scipy CSR of the port's
    own generator (‖A·x − θ·x‖ ≤ 1e-8):
@@ -43,12 +62,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      must launch;
    * RoadNet(48000) (the roadnet48k config's matrix) at N_s = 64,
      n_target = 16, fp64, τ just above the spectrum: no DIA form, so the
-     ELL kernel must launch and the DIA kernel must not.
+     ELL kernel and its epilogue entry must launch and the DIA kernel
+     must not;
+   * the same RoadNet solve at 8 row shards (``--n-row 8 --spmv-comm
+     compressed --spmv-overlap``: the split-phase cyclic engine), its
+     eigenvalues equal to the one-shard solve's to 1e-9;
+   * HubNet(48000) (the hubnet48k config's matrix) at 8 row shards with
+     the matching rounds (``--spmv-schedule matching``), N_s = 64,
+     n_target = 16, τ 0.1 above its largest eigenvalue (``eigsh``).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
-them is the ``kernels`` record (both kernels, each with its launches on
-the three solves and its dtype cases). ``--kernels-only`` stops after
+them is the ``kernels`` record (both kernels and the epilogue entry,
+each with its launches on the five solves and its dtype cases). ``--kernels-only`` stops after
 phase 3 and prints no result line (for tuning the kernels; the full run is
 the check).
 """
@@ -85,6 +111,9 @@ TOPINS = dict(Lx=40)  # D = 256,000
 ROADNET = dict(n=48000, w=2, m=1200, k=4)
 RN_N_SEARCH, RN_N_TARGET = 64, 16
 RN_MAX_ITERS = 400  # ~150 needed at the upper edge
+# the hubnet48k config's matrix and N_s, N_t
+HUBNET = dict(n=48000, w=2, h=5, m=512, k=4)
+HN_N_SEARCH, HN_N_TARGET, HN_MAX_ITERS = 64, 16, 400
 # forced slab widths timed at Hubbard n_b = 512 (fp64) and Exciton
 # n_b = 384 (complex128)
 SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
@@ -92,10 +121,14 @@ SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
               "cheb_dia complex": (4, 8, 16, 32, 64, EX_N_SEARCH)}
 REPLACES = {
     "ell_gather": "src/repro/kernels/ell_gather.py:172",
+    # the same Pallas kernel, with the step's epilogue that XLA fuses
+    # around it (src/repro/core/spmv.py:1092-1097)
+    "ell_gather_cheb": "src/repro/kernels/ell_gather.py:172",
     "cheb_dia": "src/repro/kernels/cheb_dia.py:125",
 }
 SOURCES = {
     "ell_gather": "src/repro_torch/kernels/csrc/ell_gather.cu",
+    "ell_gather_cheb": "src/repro_torch/kernels/csrc/ell_gather.cu",
     "cheb_dia": "src/repro_torch/kernels/csrc/cheb_dia.cu",
 }
 
@@ -140,11 +173,11 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
 
 
 def compare(name, case, dtype, kernel, plain, n_bytes, n_ops, library=None,
-            reps=(10, 3), slab=None, extra=None):
+            reps=(10, 3), slab=None, extra=None, bitwise_dtypes=BITWISE):
     """Run the kernel and its plain version on the same inputs, hold them
-    to the tolerance, time both (and the library call). ``slab`` is the
-    rule's (c, modelled bytes) for the launch; ``extra`` is added to the
-    record."""
+    to the tolerance (bit for bit in ``bitwise_dtypes``), time both (and
+    the library call). ``slab`` is the rule's (c, modelled bytes) for the
+    launch; ``extra`` is added to the record."""
     import torch
 
     y = kernel()
@@ -186,7 +219,7 @@ def compare(name, case, dtype, kernel, plain, n_bytes, n_ops, library=None,
     if not finite or not rel <= TOL[dtype]:
         raise SmokeFailure(f"{name} {case} {dtype} disagrees with its plain "
                            f"version: rel {rel:.3e} > {TOL[dtype]:.0e}")
-    if dtype in BITWISE and not bitwise:
+    if dtype in bitwise_dtypes and not bitwise:
         raise SmokeFailure(f"{name} {case} {dtype} is not bit-equal to its "
                            f"plain version (max|err| {err:.3e})")
     torch.cuda.empty_cache()
@@ -268,9 +301,12 @@ def time_add(records: list, case: str, x, w2, dtype: str) -> None:
 
 
 def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
-             gen, sweep: bool = False) -> None:
+             gen, sweep: bool = False, cheb: bool = False) -> None:
     """``ell_gather`` against its plain version on ``x [R, nb]``;
-    ``sweep`` times the forced slab widths of ``SLAB_SWEEP``."""
+    ``sweep`` times the forced slab widths of ``SLAB_SWEEP``; ``cheb``
+    also holds the epilogue entry (``ell_gather_cheb``, ``2a·A·x + 2b·w1 −
+    w2`` with w1, w2 blocks of their own) to its plain version, bit for
+    bit in fp64 and complex128, against the same cuSPARSE product."""
     import torch
 
     from repro_torch.kernels import plan, ref
@@ -291,6 +327,24 @@ def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
         lambda: k_ell(cols, vals, x, compact=cpe),
         lambda: ref.ell_spmv_ref(cols, vals, x), n_bytes, flops,
         library=lambda: A @ x, slab=ell_slab(cpe, nb, S)))
+    if cheb:
+        R = cols.shape[0]
+        w1, w2 = (torch.randn((R, nb), generator=gen, device="cuda",
+                              dtype=torch.complex128 if tdt.is_complex
+                              else torch.float64).to(tdt) for _ in range(2))
+        a, b = 0.013, -0.4
+        # the operator as the kernel reads it, x, w1, w2 and y once
+        op_bytes = plan.ell_bytes_per_row(cpe) * R
+        epi_flops = (8.0 if tdt.is_complex else 4.0) * R * nb
+        records.append(compare(
+            "ell_gather_cheb", f"{label} n_b={nb}", dtype,
+            lambda: k_ell(cols, vals, x, compact=cpe, epilogue=(w1, w2, a, b)),
+            lambda: ref.cheb_epilogue(ref.ell_spmv_ref(cols, vals, x), w1, w2,
+                                      a, b),
+            op_bytes + 4 * R * nb * S, flops + epi_flops,
+            library=lambda: A @ x, slab=ell_slab(cpe, nb, S),
+            bitwise_dtypes=("float64", "complex128")))
+        del w1, w2
     if sweep:
         want = ref.ell_spmv_ref(cols, vals, x)
         slab_sweep(records, "ell_gather",
@@ -377,13 +431,14 @@ def phase_kernels(records: list) -> None:
         log(f"[kernels] {mat.describe()}: ELL R={ell64.R} W={ell64.W} "
             f"span={ell64.span} built in {time.perf_counter() - t0:.2f} s")
         for dtype in ("float64", "float32"):
-            vals = ell64.vals.to(getattr(torch, dtype))
+            vals = ell64.vals[0].to(getattr(torch, dtype))
             main = fam is Hubbard and dtype == "float64"
             for nb in nbs:
-                ell_case(records, fam.name, ell64.cols, vals, nb, dtype, gen,
-                         sweep=main and nb == N_SEARCH)
+                ell_case(records, fam.name, ell64.cols[0], vals, nb, dtype,
+                         gen, sweep=main and nb == N_SEARCH,
+                         cheb=fam is Hubbard and nb == N_SEARCH)
             if fam is Hubbard:
-                dia = ops.plan_dia(ell64.cols, vals, ell64.R, device="cuda")
+                dia = ops.plan_dia(ell64.cols[0], vals, ell64.R, device="cuda")
                 if dia is None or len(dia.offsets) > ops.DIA_MAX_DIAGS:
                     raise SmokeFailure("Hubbard(12,6) has no DIA form")
                 log_dia(mat, dtype, dia)
@@ -409,11 +464,13 @@ def phase_kernels_families(records: list) -> None:
     t0 = time.perf_counter()
     mat = RoadNet(**ROADNET)
     ell = build_dist_ell(mat, 1, dtype="float64", device="cuda")
+    cols, vals = ell.cols[0], ell.vals[0]
     log(f"[kernels] {mat.describe()}: ELL R={ell.R} W={ell.W} span={ell.span}"
-        f", DIA form: {ops.plan_dia(ell.cols, ell.vals, ell.R) is not None}; "
+        f", DIA form: {ops.plan_dia(cols, vals, ell.R) is not None}; "
         f"built in {time.perf_counter() - t0:.2f} s")
-    ell_case(records, "RoadNet", ell.cols, ell.vals, RN_N_SEARCH, "float64",
-             gen)
+    ell_case(records, "RoadNet", cols, vals, RN_N_SEARCH, "float64", gen,
+             cheb=True)
+    del cols, vals
     del ell
 
     for fam, params, label, dtypes, nbs_ell, nbs_dia in (
@@ -426,10 +483,11 @@ def phase_kernels_families(records: list) -> None:
         log(f"[kernels] {mat.describe()}: ELL R={ell.R} W={ell.W} "
             f"span={ell.span} built in {time.perf_counter() - t0:.2f} s")
         for dtype in dtypes:
-            vals = ell.vals.to(getattr(torch, dtype))
+            vals = ell.vals[0].to(getattr(torch, dtype))
             for nb in nbs_ell:
-                ell_case(records, label, ell.cols, vals, nb, dtype, gen)
-            dia = ops.plan_dia(ell.cols, vals, ell.R, device="cuda")
+                ell_case(records, label, ell.cols[0], vals, nb, dtype, gen,
+                         cheb=nb == EX_N_SEARCH)
+            dia = ops.plan_dia(ell.cols[0], vals, ell.R, device="cuda")
             if dia is None:
                 raise SmokeFailure(f"{mat.describe()} has no DIA form")
             log_dia(mat, dtype, dia)
@@ -442,6 +500,233 @@ def phase_kernels_families(records: list) -> None:
             del vals, dia
         del ell
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- engines --
+
+#: (comm, schedule, overlap, pipeline) of the horizontal layer's engines
+ENGINES = (("a2a", "cyclic", False, True), ("a2a", "cyclic", True, True),
+           ("compressed", "cyclic", False, True),
+           ("compressed", "cyclic", True, False),
+           ("compressed", "cyclic", True, True),
+           ("compressed", "matching", False, True),
+           ("compressed", "matching", True, False),
+           ("compressed", "matching", True, True))
+ENG_P = 4  # row shards of the engines phase
+ENG_REPS = 3  # timed calls of each engine (after one warm-up)
+ENG_LOOP = 5  # repeated split-phase steps held bit-equal (side stream)
+FILTER_DEGREE = 32
+
+
+def engine_name(comm, sched, ov, pipe) -> str:
+    if comm == "a2a":
+        return "a2a-overlap" if ov else "a2a"
+    return f"compressed-{sched}" + ("" if not ov else
+                                    "-pipelined" if pipe else "-overlap")
+
+
+def engines_case(label: str, mat, dtype: str, nb: int, gen,
+                 P: int = ENG_P, reps: int = ENG_REPS) -> dict:
+    """Every engine of ``mat`` at ``P`` shards, kernels on: SpMV and
+    fused step bit-equal to the a2a engine, and that one bit-equal to the
+    same engine built from the plain versions on the card; the bytes each
+    exchange recorded equal to the prediction (a2a ``P·P·L·n_b·S``,
+    compressed ``P·H·n_b·S``); times of the SpMV, the step and the
+    exchange alone (CUDA events), peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ShardGroup, build_dist_ell, chi_from_nvc,
+                                  make_fused_cheb_step, make_spmv)
+    from repro_torch.core.spmv import Partition
+
+    t0 = time.perf_counter()
+    ell = build_dist_ell(mat, P, dtype=dtype, split_halo=True, device="cuda")
+    H = {s: ell.neighbor_plan(split_halo=True, schedule=s).H
+         for s in ("cyclic", "matching")}
+    host_s = time.perf_counter() - t0
+    S = ell.vals.element_size()
+    chi = chi_from_nvc(ell.n_vc, np.diff(Partition(ell.D, P).boundaries()),
+                       ell.D)
+    cl, _, ch, _ = ell.split()
+    info = dict(case=label, P=P, D=ell.D, D_pad=ell.D_pad, R=ell.R, n_b=nb,
+                dtype=dtype, L=ell.L, H_cyclic=H["cyclic"],
+                H_matching=H["matching"], sum_n_vc=int(ell.n_vc.sum()),
+                n_vc=[int(v) for v in ell.n_vc], chi1=chi.chi1, chi2=chi.chi2,
+                chi3=chi.chi3, imbalance=chi.imbalance,
+                halo_nnz_fraction=ell.halo_nnz_fraction, W=ell.W,
+                W_loc=int(cl.shape[2]), W_halo=int(ch.shape[2]),
+                host_build_s=host_s)
+    log(f"[engines] {label}: P={P} R={ell.R} D_pad={ell.D_pad} W={ell.W} "
+        f"(local {info['W_loc']}, halo {info['W_halo']}) L={ell.L} "
+        f"H cyclic/matching={H['cyclic']}/{H['matching']} "
+        f"sum n_vc={info['sum_n_vc']} chi1={chi.chi1:.4f} "
+        f"chi2={chi.chi2:.4f} chi3={chi.chi3:.4f} "
+        f"halo_nnz_fraction={ell.halo_nnz_fraction:.4f}; host build "
+        f"{host_s:.2f} s")
+    tdt = getattr(torch, dtype)
+    x, w2 = (torch.randn((ell.D_pad, nb), generator=gen, device="cuda",
+                         dtype=torch.complex128 if tdt.is_complex
+                         else torch.float64).to(tdt) for _ in range(2))
+    x[ell.D:] = 0
+    w2[ell.D:] = 0
+    a, b = 0.013, -0.4
+
+    # the a2a engine built from the plain versions, on the card
+    gp = ShardGroup(P, "cuda")
+    spmv_p = make_spmv(ell, group=gp)
+    step_p = make_fused_cheb_step(ell, group=gp)
+    y_plain = spmv_p(x)
+    s_plain = step_p(x, w2, a, b)
+    plain_ms = time_ms(lambda: step_p(x, w2, a, b), 1, warmup=0)
+    torch.cuda.synchronize()
+    del spmv_p, step_p
+    torch.cuda.empty_cache()
+    base, rows = None, []
+    for comm, sched, ov, pipe in ENGINES:
+        name = engine_name(comm, sched, ov, pipe)
+        torch.cuda.reset_peak_memory_stats()
+        g = ShardGroup(P, "cuda")
+        kw = dict(group=g, use_kernel=True, overlap=ov, comm=comm,
+                  schedule=sched, pipeline=pipe)
+        spmv = make_spmv(ell, **kw)
+        step = make_fused_cheb_step(ell, **kw)
+        y = spmv(x)
+        kind = "all_to_all" if comm == "a2a" else "ppermute"
+        moved = g.bytes[kind]
+        want = (P * P * ell.L if comm == "a2a" else P * H[sched]) * nb * S
+        s_ = step(x, w2, a, b)
+        torch.cuda.synchronize()
+        if base is None:
+            if not (torch.equal(y, y_plain) and torch.equal(s_, s_plain)):
+                raise SmokeFailure(f"engines {label}: the a2a engine differs "
+                                   "from its plain version")
+            base = (y, s_)
+            del y_plain, s_plain
+        bitwise = bool(torch.equal(y, base[0]) and torch.equal(s_, base[1]))
+        loop_ok = True
+        if ov:  # the side stream, again and again
+            for _ in range(ENG_LOOP):
+                loop_ok &= bool(torch.equal(step(x, w2, a, b), base[1]))
+        del y, s_
+        spmv_ms = time_ms(lambda: spmv(x), reps)
+        step_ms = time_ms(lambda: step(x, w2, a, b), reps)
+        ex_ms = time_ms(lambda: spmv.exchange(x), reps)
+        peak = torch.cuda.max_memory_allocated()
+        rec = dict(engine=name, bytes_moved=moved, bytes_predicted=want,
+                   spmv_ms=spmv_ms, step_ms=step_ms, exchange_ms=ex_ms,
+                   bitwise=bitwise, loop_bitwise=loop_ok,
+                   max_memory_allocated=peak,
+                   H=ell.P * ell.L if comm == "a2a" else H[sched])
+        rows.append(rec)
+        log(f"[engines] {label} {name}: step_ms={step_ms:.4f} "
+            f"spmv_ms={spmv_ms:.4f} exchange_ms={ex_ms:.4f} (device copies "
+            f"between shards on one card) bytes {moved} (predicted {want}) "
+            f"bitwise={bitwise} loop_bitwise={loop_ok} "
+            f"max_memory_allocated={peak} B")
+        if moved != want:
+            raise SmokeFailure(f"engines {label} {name}: moved {moved} B, "
+                               f"predicted {want} B")
+        if not (bitwise and loop_ok):
+            raise SmokeFailure(f"engines {label} {name}: differs from the "
+                               "a2a engine")
+        del spmv, step, g
+        torch.cuda.empty_cache()
+    info.update(engines=rows, plain_step_ms=plain_ms)
+    log(f"[engines] {label}: the a2a step from the plain versions "
+        f"{plain_ms:.4f} ms")
+    del x, w2, base, ell
+    torch.cuda.empty_cache()
+    return info
+
+
+def tsqr_and_filter_case(gen) -> dict:
+    """On Hubbard(12,6) at P = ``ENG_P``: TSQR of a random [D, 512] block
+    against the one-shard QR, and one Chebyshev filter of degree
+    ``FILTER_DEGREE`` through the a2a split-phase engine against the
+    one-shard DIA route on the same block."""
+    import torch
+
+    from repro_torch.core import (ShardGroup, build_dist_ell, build_filter,
+                                  chebyshev_filter, make_fused_cheb_step,
+                                  make_spmv, make_tsqr, scale_params)
+    from repro_torch.matrices import Hubbard
+
+    mat = Hubbard(**HUBBARD)
+    D = mat.D
+    out = {}
+    V = torch.randn((D, N_SEARCH), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    g = ShardGroup(ENG_P, "cuda")
+    tsqr = make_tsqr(g)
+    Q, R = tsqr(V)
+    torch.cuda.synchronize()
+    nV = torch.linalg.norm(V)
+    res = float(torch.linalg.norm(V - Q @ R) / nV)
+    orth = float((Q.T @ Q - torch.eye(N_SEARCH, device="cuda",
+                                      dtype=torch.float64)).abs().max())
+    Q1, R1 = torch.linalg.qr(V)
+    d, d1 = R.diagonal().abs(), R1.diagonal().abs()
+    diag = float(((d - d1).abs() / d1).max())
+    ms = time_ms(lambda: tsqr(V), 2)
+    ms1 = time_ms(lambda: torch.linalg.qr(V), 2)
+    del Q, R, Q1, R1
+    torch.cuda.empty_cache()
+    out["tsqr"] = dict(P=ENG_P, rows=D, cols=N_SEARCH, residual=res,
+                       orthogonality=orth, diag_R_rel=diag, ms=ms,
+                       qr_one_shard_ms=ms1, ppermute_bytes=g.bytes["ppermute"])
+    log(f"[engines] TSQR Hubbard P={ENG_P} [{D} x {N_SEARCH}] fp64: "
+        f"||V-QR||/||V||={res:.3e} ||Q^T Q - I||={orth:.3e} |diag R| vs "
+        f"one-shard QR rel {diag:.3e}; {ms:.4f} ms (one-shard QR "
+        f"{ms1:.4f} ms)")
+    if not (res <= 1e-13 and orth <= 1e-12 and diag <= 1e-10):
+        raise SmokeFailure("TSQR at P = 4 fails its checks")
+
+    lam = mat.spectral_bounds_hint()  # encloses the spectrum
+    alpha, beta = scale_params(*lam)
+    poly = build_filter((lam[0], lam[0] + 0.1 * (lam[1] - lam[0])), lam,
+                        degree=FILTER_DEGREE)
+    ell1 = build_dist_ell(mat, 1, device="cuda")
+    one = chebyshev_filter(make_spmv(ell1, use_kernel=True), poly.mu, alpha,
+                           beta, V, fused_step=make_fused_cheb_step(
+                               ell1, use_kernel=True))
+    del ell1
+    ell4 = build_dist_ell(mat, ENG_P, split_halo=True, device="cuda")
+    kw = dict(group=g, use_kernel=True, overlap=True)
+    four = chebyshev_filter(make_spmv(ell4, **kw), poly.mu, alpha, beta, V,
+                            fused_step=make_fused_cheb_step(ell4, **kw))
+    torch.cuda.synchronize()
+    rel = float((four - one).abs().max() / one.abs().max())
+    out["filter"] = dict(degree=FILTER_DEGREE, P=ENG_P, engine="a2a-overlap",
+                         max_rel_to_max_Y=rel)
+    log(f"[engines] Chebyshev filter degree {FILTER_DEGREE}, Hubbard "
+        f"P={ENG_P} a2a-overlap vs P=1 DIA route: max|dY|/max|Y| = "
+        f"{rel:.3e}")
+    del one, four, ell4, V
+    torch.cuda.empty_cache()
+    if not rel <= 1e-10:
+        raise SmokeFailure(f"filter at P = {ENG_P} differs from P = 1 by "
+                           f"{rel:.3e}")
+    return out
+
+
+def phase_engines() -> dict:
+    """The eight engines on Hubbard(12,6) (fp64, n_b = 512) and
+    Exciton(L=30) (complex128, n_b = 384) at P = 4 and on RoadNet(48000)
+    (fp64, n_b = 64) at P = 8, then TSQR and the filter at P = 4."""
+    import torch
+
+    from repro_torch.matrices import Exciton, Hubbard, RoadNet
+
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    out = dict(cases=[
+        engines_case("Hubbard", Hubbard(**HUBBARD), "float64", N_SEARCH, gen),
+        engines_case("Exciton", Exciton(**EXCITON), "complex128",
+                     EX_N_SEARCH, gen),
+        engines_case("RoadNet", RoadNet(**ROADNET), "float64", RN_N_SEARCH,
+                     gen, P=8, reps=50)])
+    out.update(tsqr_and_filter_case(gen))
+    return out
 
 
 def host_operator(fam, params: dict, which: str):
@@ -460,10 +745,12 @@ def host_operator(fam, params: dict, which: str):
 
 def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
               n_target: int, target: float, max_iters: int,
-              launched: dict, dtype: str = "float64") -> dict:
+              launched: dict, dtype: str = "float64",
+              engine: tuple = ()) -> dict:
     """One solve through the CLI, its launch counts set to 0 just before
     and read just after (``launched`` maps each kernel to whether it must
-    launch), every returned pair re-checked on the host against ``A``."""
+    launch), every returned pair re-checked on the host against ``A``.
+    ``engine`` holds the CLI's horizontal-layer flags (``--n-row`` ...)."""
     import numpy as np
     import torch
 
@@ -475,7 +762,8 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
             "--n-search", str(n_search), "--n-target", str(n_target),
             "--target", repr(target), "--tol", "1e-10",
             "--max-iters", str(max_iters), "--layout", "stack",
-            "--dtype", dtype, "--spmv-kernel", "--device", "cuda"]
+            "--dtype", dtype, "--spmv-kernel", "--device", "cuda",
+            *engine]
     log(f"[solve {label}] python -m repro_torch.launch.solve " + " ".join(argv))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -517,13 +805,17 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
                 total_spmvs=res.total_spmvs, max_memory_allocated=peak,
                 launches=launches, host_residual_max=float(resid.max()),
                 eigenvalues=[float(t) for t in theta], target=target,
-                dtype=str(X.dtype))
+                dtype=str(X.dtype), exchange=res.exchange,
+                argv=" ".join(argv))
 
 
 def phase_solves() -> dict:
-    from repro_torch.matrices import Exciton, Hubbard, RoadNet
+    import numpy as np
 
-    both = dict(ell_gather=True, cheb_dia=True)
+    from repro_torch.matrices import Exciton, HubNet, Hubbard, RoadNet
+
+    both = dict(ell_gather=True, ell_gather_cheb=False, cheb_dia=True)
+    ell_route = dict(ell_gather=True, ell_gather_cheb=True, cheb_dia=False)
     out = {}
     # a Ritz value from above: τ = estimate − 0.1 lies below the spectrum
     # as long as the estimate is within 0.1 of the lowest eigenvalue
@@ -547,8 +839,31 @@ def phase_solves() -> dict:
     out["roadnet"] = run_solve(
         "roadnet", "RoadNet", ROADNET, A, n_search=RN_N_SEARCH,
         n_target=RN_N_TARGET, target=lam + 0.1, max_iters=RN_MAX_ITERS,
-        launched=dict(ell_gather=True, cheb_dia=False))
+        launched=ell_route)
     out["roadnet"]["eigsh_upper_edge"] = lam
+    # the horizontal layer: 8 row shards on the card, the same draws
+    out["roadnet_p8"] = run_solve(
+        "roadnet_p8", "RoadNet", ROADNET, A, n_search=RN_N_SEARCH,
+        n_target=RN_N_TARGET, target=lam + 0.1, max_iters=RN_MAX_ITERS,
+        launched=ell_route, engine=("--n-row", "8", "--spmv-comm",
+                                    "compressed", "--spmv-overlap"))
+    one = np.sort(out["roadnet"]["eigenvalues"])[:RN_N_TARGET]
+    eight = np.sort(out["roadnet_p8"]["eigenvalues"])[:RN_N_TARGET]
+    dev = float(np.abs(one - eight).max())
+    out["roadnet_p8"]["max_dev_from_p1"] = dev
+    log(f"[solve roadnet_p8] eigenvalues vs the P = 1 solve: max |d| = "
+        f"{dev:.3e}")
+    if not dev <= 1e-9:
+        raise SmokeFailure(f"RoadNet at P = 8 differs from P = 1 by {dev:.3e}")
+    del A
+    A, lam = host_operator(HubNet, HUBNET, "LA")
+    out["hubnet_p8"] = run_solve(
+        "hubnet_p8", "HubNet", HUBNET, A, n_search=HN_N_SEARCH,
+        n_target=HN_N_TARGET, target=lam + 0.1, max_iters=HN_MAX_ITERS,
+        launched=ell_route, engine=("--n-row", "8", "--spmv-comm",
+                                    "compressed", "--spmv-schedule",
+                                    "matching"))
+    out["hubnet_p8"]["eigsh_upper_edge"] = lam
     return out
 
 
@@ -594,11 +909,14 @@ def run(args) -> int:
         return 0
 
     t0 = time.perf_counter()
+    engines = phase_engines()
+    log(f"[engines] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     solves = phase_solves()
     log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
-    for k in ("ell_gather", "cheb_dia"):
+    for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
         r = next(r for r in records if r["name"] == k
                  and r["case"] == main_case and r["dtype"] == "float64")
         cases = [dict(case=c["case"], dtype=c["dtype"], ms=c["ms"],
@@ -619,8 +937,8 @@ def run(args) -> int:
         write_record(args.out, dict(device=dict(name=name, count=count,
                                                 nvidia_smi=smi),
                                     build_seconds=build.build_seconds,
-                                    checks=records, solves=solves,
-                                    kernels=line))
+                                    checks=records, engines=engines,
+                                    solves=solves, kernels=line))
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,9 +5,16 @@ The JAX package's operator and solver state, handed over as numpy arrays
 complex, so both packages can compute on the same operator and from the
 same state:
 
-* a one-shard ``DistEll``'s ``cols/vals`` ([1, R, W] or [R, W]);
-* a ``DiaPlan``'s ``offsets/dvals`` ([1, n_diag, R] or [n_diag, R]);
+* a ``DistEll`` of P row shards: ``cols/vals [P, R, W]`` (``[R, W]`` is
+  taken as one shard), and where given its ``send_idx [P, P, L]``,
+  ``pair_counts``, ``n_vc``, its split-phase blocks and its neighbour
+  plans' arrays;
+* a ``DiaPlan``'s ``offsets/dvals`` (``[1, n_diag, R]`` or
+  ``[n_diag, R]``);
 * an ``FDState``'s search block ``V`` and interval ``lam``.
+
+Each function puts its tensors on ``device``: the card unless ``"cpu"``
+is given.
 """
 from __future__ import annotations
 
@@ -15,47 +22,116 @@ import numpy as np
 import torch
 
 from .core.filter_diag import FDState
-from .core.spmv import DistEll
+from .core.spmv import DistEll, NeighborPlan
+from .device import resolve_device
 from .kernels.ops import DiaPlan
-from .kernels.plan import span_of_ell
+from .kernels.plan import span_of
 
 
 def _one_shard(a: np.ndarray, ndim: int, what: str) -> np.ndarray:
     a = np.asarray(a)
     if a.ndim == ndim + 1:
         if a.shape[0] != 1:
-            raise NotImplementedError(f"{what}: {a.shape[0]} shards; only one "
-                                      "is ported yet, see ROADMAP")
+            raise ValueError(f"{what}: {a.shape[0]} shards where one is "
+                             "expected")
         a = a[0]
     if a.ndim != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got shape {a.shape}")
     return a
 
 
-def dist_ell_from_arrays(cols, vals, D: int | None = None,
-                         device="cpu") -> DistEll:
-    """The port's operator from a P = 1 ``DistEll``'s ``cols/vals``."""
-    cols = _one_shard(cols, 2, "cols").astype(np.int32)
-    vals = _one_shard(vals, 2, "vals")
-    R = cols.shape[0]
-    cols_t = torch.tensor(cols, device=device)
-    vals_t = torch.tensor(vals, device=device)
-    return DistEll(cols=cols_t, vals=vals_t, R=R, D=R if D is None else int(D),
-                   span=span_of_ell(cols_t, vals_t))
+def _span(cols: np.ndarray, vals: np.ndarray, send_idx: np.ndarray,
+          R: int) -> int:
+    """``max |col − row|`` over the stored entries in global numbering: a
+    local column c of shard p is ``p·R + c``, a halo column
+    ``R + q·L + s`` is row ``send_idx[q, p, s]`` of shard q."""
+    P = cols.shape[0]
+    L = send_idx.shape[2]
+    c = cols.astype(np.int64)
+    p = np.broadcast_to(np.arange(P, dtype=np.int64)[:, None, None], c.shape)
+    glob = p * R + c
+    halo = c >= R
+    if halo.any():
+        q, s = (c[halo] - R) // L, (c[halo] - R) % L
+        glob[halo] = q * R + send_idx[q, p[halo], s]
+    rows = np.broadcast_to(np.arange(P * R, dtype=np.int64).reshape(P, R, 1),
+                           c.shape)
+    stored = vals != 0
+    return span_of(rows[stored], glob[stored])
 
 
-def dia_plan_from_arrays(offsets, dvals, device="cpu") -> DiaPlan:
+def dist_ell_from_arrays(cols, vals, D: int | None = None, *, send_idx=None,
+                         pair_counts=None, n_vc=None, split=None, nbr=None,
+                         device=None) -> DistEll:
+    """The port's operator from a reference ``DistEll``'s arrays.
+
+    ``cols/vals`` ``[P, R, W]`` (or ``[R, W]``: one shard); ``send_idx``
+    ``[P, P, L]`` (required when P > 1; ``L`` is its last extent);
+    ``pair_counts``, ``n_vc`` host arrays; ``split`` the four
+    arrays of ``DistEll.split()``; ``nbr`` maps a schedule name to a
+    reference ``NeighborPlan`` or to a dict of its ``perms``,
+    ``round_L``, ``send_nbr``, ``cols_nbr`` (and, when built,
+    ``cols_halo_nbr`` and ``halo_rounds``)."""
+    dev = resolve_device(device)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    if cols.ndim == 2:
+        cols, vals = cols[None], vals[None]
+    if cols.ndim != 3 or vals.shape != cols.shape:
+        raise ValueError(f"cols {cols.shape} / vals {vals.shape}: expected "
+                         "[P, R, W]")
+    P, R, _ = cols.shape
+    if send_idx is None:
+        if P > 1:
+            raise ValueError(f"{P} shards need their send_idx")
+        send_idx = np.zeros((1, 1, 0), dtype=np.int32)
+    send_idx = np.asarray(send_idx).astype(np.int32)
+    L = int(send_idx.shape[2])
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    ell = DistEll(cols=t(cols.astype(np.int32)), vals=t(vals),
+                  send_idx=t(send_idx), R=R, L=L, P=P,
+                  D=P * R if D is None else int(D),
+                  n_vc=None if n_vc is None else np.asarray(n_vc),
+                  pair_counts=(None if pair_counts is None
+                               else np.asarray(pair_counts)),
+                  span=_span(cols, vals, send_idx, R))
+    if split is not None:
+        ell.cols_loc, ell.vals_loc, ell.cols_halo, ell.vals_halo = (
+            t(a) for a in split)
+    if nbr:
+        ell.nbr = {}
+        for name, plan in nbr.items():
+            get = (plan.get if isinstance(plan, dict)
+                   else lambda k, d=None, p=plan: getattr(p, k, d))
+            rounds = get("halo_rounds")
+            halo = get("cols_halo_nbr")
+            ell.nbr[name] = NeighborPlan(
+                perms=tuple(tuple((int(s), int(d)) for s, d in perm)
+                            for perm in get("perms")),
+                round_L=tuple(int(x) for x in get("round_L")),
+                send_nbr=t(np.asarray(get("send_nbr")).astype(np.int32)),
+                cols_nbr=t(np.asarray(get("cols_nbr")).astype(np.int32)),
+                cols_halo_nbr=None if halo is None else t(halo),
+                halo_rounds=None if rounds is None else tuple(
+                    (t(c), t(v)) for c, v in rounds))
+    return ell
+
+
+def dia_plan_from_arrays(offsets, dvals, device=None) -> DiaPlan:
     """The port's DIA plan from a ``DiaPlan``'s ``offsets/dvals``."""
     dvals = _one_shard(dvals, 2, "dvals")
     return DiaPlan(offsets=tuple(int(o) for o in offsets),
-                   dvals=torch.tensor(dvals, device=device))
+                   dvals=torch.tensor(dvals, device=resolve_device(device)))
 
 
 def fd_state_from_arrays(V, lam, *, iteration: int = 0, total_spmvs: int = 0,
-                         device="cpu") -> FDState:
-    """An :class:`FDState` at an iteration boundary from ``V [D, N_s]`` and
-    the Lanczos interval ``lam``."""
+                         device=None) -> FDState:
+    """An :class:`FDState` at an iteration boundary from ``V [D_pad, N_s]``
+    and the Lanczos interval ``lam``."""
     V = np.asarray(V)
-    return FDState(V=torch.tensor(V, device=device),
+    return FDState(V=torch.tensor(V, device=resolve_device(device)),
                    lam=(float(lam[0]), float(lam[1])),
                    iteration=iteration, total_spmvs=total_spmvs)

@@ -1,11 +1,18 @@
-"""Filter diagonalization driver — paper Algorithm 1, one device.
+"""Filter diagonalization driver — paper Algorithm 1, on one device.
 
-The stack layout on one device: orthogonalization (TSQR's local QR, or
-SVQB), Ritz extraction, the adaptive intervals and the Chebyshev filter all
-run on the same [D, N_s] block. With ``spmv_kernel`` every single SpMV
-(Lanczos, the Ritz ``A·V``, the filter's T1) runs the CUDA ELL kernel and
-every fused filter step runs the DIA kernel where ``ops.plan_dia`` accepts
-the operator.
+The stack layout over ``n_row`` row shards (the horizontal layer; one
+shard by default): orthogonalization (TSQR over the shards, or SVQB),
+Ritz extraction, the adaptive intervals and the Chebyshev filter all run
+on the same stacked ``[D_pad, N_s]`` block, ``D_pad = ⌈D/P⌉·P``, whose
+pad rows stay exactly zero. The shards' collectives run in a
+:class:`~repro_torch.core.shards.ShardGroup` on the one device, and the
+SpMV takes the halo engine that ``spmv_overlap``, ``spmv_comm`` and
+``spmv_schedule`` name (``core/spmv.py``; the compressed split-phase
+engine without the round pipeline). With ``spmv_kernel`` every
+block of every SpMV (Lanczos, the Ritz ``A·V``, the filter's T1) runs
+the CUDA ELL kernel, and every fused filter step the DIA kernel where the
+operator needs no halo and ``ops.plan_dia`` accepts it, else the ELL
+kernel with its fused epilogue.
 
 A complex operator (Exciton, TopIns) solves in complex128 when
 ``cfg.dtype`` is ``"float64"`` and in complex64 when it is ``"float32"``;
@@ -14,9 +21,8 @@ included. The start block and the Lanczos vector are drawn real and cast,
 as the reference draws them (``repro/core/filter_diag.py:337``,
 ``repro/core/lanczos.py:31``).
 
-The other layouts, the split-phase and compressed halo engines, the s-step
-filter and planned row partitions belong to the horizontal and vertical
-layers, which are not ported yet: asking for them raises.
+The other layouts (the vertical layer), the s-step filter and planned row
+partitions are not ported yet: asking for them raises.
 """
 from __future__ import annotations
 
@@ -29,9 +35,10 @@ import torch
 from . import filters
 from .chebyshev import chebyshev_filter, scale_params
 from .lanczos import lanczos_interval
-from .orthogonalize import gram, qr_fixed, svqb
-from .spmv import build_dist_ell, make_fused_cheb_step, make_spmv
-from ..device import resolve_device
+from .layouts import stack
+from .orthogonalize import make_gram, make_svqb, make_tsqr
+from .spmv import (_validate_engine, build_dist_ell, make_fused_cheb_step,
+                   make_spmv)
 
 __all__ = ["FDConfig", "FDResult", "FDState", "FilterDiag"]
 
@@ -73,8 +80,12 @@ class FDResult:
     wall_time: float
     redist_time: float
     history: list
-    #: Ritz vectors [D, k] of the returned eigenvalues (host copy)
+    #: Ritz vectors [D, k] of the returned eigenvalues (host copy, pad
+    #: rows stripped)
     eigenvectors: np.ndarray | None = None
+    #: what the shards' collectives moved over the solve: the SpMV engine,
+    #: P, L, and bytes and calls per collective kind (``ShardGroup``)
+    exchange: dict | None = None
 
 
 @dataclasses.dataclass
@@ -86,7 +97,7 @@ class FDState:
     them.
     """
 
-    V: torch.Tensor | None         # search block [D, N_s]
+    V: torch.Tensor | None         # search block [D_pad, N_s]
     lam: tuple                     # Lanczos inclusion interval (λ_l, λ_r)
     iteration: int = 0
     total_spmvs: int = 0
@@ -105,12 +116,8 @@ def _not_ported(what: str):
 
 def _check_config(cfg: FDConfig) -> None:
     if cfg.layout != "stack":
-        raise _not_ported(f"layout={cfg.layout!r} (only 'stack' on one device)")
-    if cfg.spmv_overlap:
-        raise _not_ported("spmv_overlap")
-    if cfg.spmv_comm != "a2a" or cfg.spmv_schedule != "cyclic":
-        raise _not_ported(f"spmv_comm={cfg.spmv_comm!r}/"
-                          f"spmv_schedule={cfg.spmv_schedule!r}")
+        raise _not_ported(f"layout={cfg.layout!r} (only 'stack', n_col = 1)")
+    _validate_engine(cfg.spmv_comm, cfg.spmv_schedule)
     if cfg.spmv_sstep != 1:
         raise _not_ported(f"spmv_sstep={cfg.spmv_sstep}")
     if (cfg.spmv_balance, cfg.spmv_reorder) != ("rows", "none"):
@@ -120,39 +127,83 @@ def _check_config(cfg: FDConfig) -> None:
 
 
 class FilterDiag:
-    """Filter diagonalization of ``matrix`` (a MatrixFamily or a CSR) on
-    one device, in the stack layout.
+    """Filter diagonalization of ``matrix`` (a MatrixFamily or a CSR) in
+    the stack layout over ``n_row`` row shards on one device.
 
     ``device`` defaults to ``"cuda"``; with no card it raises unless the
-    caller passes ``"cpu"``.
+    caller passes ``"cpu"``. TSQR needs ``n_row`` to be a power of two.
     """
 
-    def __init__(self, matrix, cfg: FDConfig, device=None):
+    def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1):
         _check_config(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.layout = stack(int(n_row))
+        self.group = self.layout.shards(device)
+        self.device = self.group.device
+        self.P = self.group.P
         self.D = matrix.shape[0] if hasattr(matrix, "shape") else matrix.D
+        self.D_pad = -(-self.D // self.P) * self.P
         # the working dtype: cfg.dtype, promoted to complex for a complex
         # operator (spmv.value_dtype)
-        self.ell = build_dist_ell(matrix, 1, dtype=cfg.dtype,
+        self.ell = build_dist_ell(matrix, self.P, dtype=cfg.dtype,
+                                  d_pad=self.D_pad,
+                                  split_halo=cfg.spmv_overlap,
                                   device=self.device)
         self.dtype = self.ell.vals.dtype
-        self.spmv = make_spmv(self.ell, use_kernel=cfg.spmv_kernel)
+        # the compressed split-phase engine contracts the halo block once
+        # every round has landed (pipeline=False): with the shards on one
+        # card the exchange is a device copy, and each pipelined round's
+        # block is one more launch and pass over every row of a shard, the
+        # slowest engine on every case measured (PERF.md, engines table)
+        engine = dict(group=self.group, overlap=cfg.spmv_overlap,
+                      comm=cfg.spmv_comm, schedule=cfg.spmv_schedule,
+                      pipeline=False)
+        self.spmv = make_spmv(self.ell, use_kernel=cfg.spmv_kernel, **engine)
+        self.engine = self.spmv.kind  # the halo engine, e.g. "a2a-overlap"
         # kernelized recurrence step: the fused 2a·A·w1 + 2b·w1 - w2 body
-        # (the DIA kernel when the operator has a DIA form) of the filter
-        self.fused_step = (make_fused_cheb_step(self.ell, use_kernel=True)
+        # (the DIA kernel when the operator has a DIA form and no halo,
+        # else the ELL kernel with its epilogue) of the filter
+        self.fused_step = (make_fused_cheb_step(self.ell, use_kernel=True,
+                                                **engine)
                            if cfg.spmv_kernel else None)
-        if cfg.ortho == "tsqr":  # TSQR on one shard is its local QR
-            # the QR routines return Q column-major; the kernels take
-            # row-major blocks
-            self.orthogonalize = lambda V: qr_fixed(V)[0].contiguous()
+        if cfg.ortho == "tsqr":
+            tsqr = make_tsqr(self.group)  # Q comes back row-major
+            self.orthogonalize = lambda V: tsqr(V)[0]
         else:
-            self.orthogonalize = svqb
+            self.orthogonalize = make_svqb(self.group)
+        self.gram = make_gram(self.group)
+
+    def _pad(self, V) -> torch.Tensor:
+        """``V`` ([D, ...] or [D_pad, ...], numpy or tensor) as a row-major
+        [D_pad, ...] tensor of the solver's dtype and device, the pad rows
+        zero (when there are pad rows, a new tensor: the caller's is not
+        touched)."""
+        V = torch.as_tensor(np.array(V) if not isinstance(V, torch.Tensor)
+                            else V).to(device=self.device, dtype=self.dtype)
+        if V.shape[0] not in (self.D, self.D_pad):
+            raise ValueError(f"block has {V.shape[0]} rows, expected "
+                             f"{self.D} or {self.D_pad}")
+        if self.D_pad == self.D:
+            return V.contiguous()
+        out = V.new_zeros((self.D_pad,) + tuple(V.shape[1:]))
+        out[:self.D] = V[:self.D]
+        return out
+
+    def exchange_summary(self) -> dict:
+        """The SpMV engine, P, L and the bytes and calls of each collective
+        kind so far (the group's counters)."""
+        return dict(engine=self.engine, P=self.P, L=self.ell.L,
+                    bytes=dict(self.group.bytes), calls=dict(self.group.calls))
+
+    def gather_global(self, V) -> np.ndarray:
+        """The rows of a padded [D_pad, ...] block in the original order,
+        [D, ...], on the host (the pad stripped)."""
+        return V[:self.D].cpu().numpy()
 
     # ------------------------------------------------------------------
     def ritz(self, V):
         AV = self.spmv(V)
-        H = gram(V, AV)  # [Ns, Ns]
+        H = self.gram(V, AV)  # [Ns, Ns], one all-reduce over the shards
         H = 0.5 * (H + H.conj().T)
         theta, Y = torch.linalg.eigh(H)
         # residual norms: || AV y - θ V y ||
@@ -212,11 +263,13 @@ class FilterDiag:
                    generator: torch.Generator | None = None) -> FDState:
         """Fresh :class:`FDState`: Lanczos inclusion interval + search block.
 
-        ``v0`` (Lanczos start vector, D entries) and ``V0`` (search block
-        [D, N_s]) may be given as numpy arrays or tensors — the tests pass
-        the reference's ``jax.random`` draws. What is not given is drawn
-        from ``generator`` (default: seeded with ``cfg.seed`` on the
-        solver's device), the Lanczos vector first.
+        ``v0`` (Lanczos start vector, D or D_pad entries) and ``V0``
+        (search block [D, N_s] or [D_pad, N_s]) may be given as numpy
+        arrays or tensors — the tests pass the reference's ``jax.random``
+        draws; their pad rows are zeroed. What is not given is drawn from
+        ``generator`` (default: seeded with ``cfg.seed`` on the solver's
+        device), the Lanczos vector first, both [D_pad, ...] with the pad
+        rows zeroed, as the reference draws them.
         """
         cfg = self.cfg
         if generator is None and (V0 is None or v0 is None):
@@ -224,13 +277,11 @@ class FilterDiag:
         t0 = time.perf_counter()
         lam = lanczos_interval(self.spmv, self.D, self.dtype, self.device,
                                v0=v0, generator=generator,
-                               steps=cfg.lanczos_steps)
+                               steps=cfg.lanczos_steps, D_pad=self.D_pad)
         if V0 is None:
-            V = torch.randn((self.D, cfg.n_search), generator=generator,
-                            dtype=torch.float64, device=self.device).to(self.dtype)
-        else:
-            V = torch.as_tensor(np.array(V0) if not isinstance(V0, torch.Tensor)
-                                else V0).to(device=self.device, dtype=self.dtype)
+            V0 = torch.randn((self.D_pad, cfg.n_search), generator=generator,
+                             dtype=torch.float64, device=self.device)
+        V = self._pad(V0)
         return FDState(V=V, lam=lam, total_spmvs=cfg.lanczos_steps,
                        wall_time=time.perf_counter() - t0)
 
@@ -256,8 +307,9 @@ class FilterDiag:
                 redistributions=state.redistributions,
                 wall_time=state.wall_time,
                 redist_time=state.redist_time, history=state.history,
-                eigenvectors=VY[:, torch.as_tensor(order, device=VY.device)]
-                .cpu().numpy(),
+                eigenvectors=self.gather_global(
+                    VY[:, torch.as_tensor(order, device=VY.device)]),
+                exchange=self.exchange_summary(),
             )
             return state
         V = self.orthogonalize(state.V)
@@ -291,8 +343,9 @@ class FilterDiag:
                 redistributions=state.redistributions,
                 wall_time=state.wall_time,
                 redist_time=state.redist_time, history=state.history,
-                eigenvectors=VY[:, torch.as_tensor(sel, device=VY.device)]
-                .cpu().numpy(),
+                eigenvectors=self.gather_global(
+                    VY[:, torch.as_tensor(sel, device=VY.device)]),
+                exchange=self.exchange_summary(),
             )
             return state
         poly = filters.build_filter(

@@ -5,7 +5,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means ``"cuda"``.
+    """``device`` as a ``torch.device``; ``None`` means ``"cuda"``, and a
+    CUDA device without an index is the current one (``cuda:0``), as a
+    tensor placed there reports it.
 
     A CUDA device with no card raises: the port never falls back to the
     CPU quietly — pass ``"cpu"`` to run there.
@@ -16,4 +18,6 @@ def resolve_device(device=None) -> torch.device:
                            "(--device cpu) to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Launches per kernel since the last :func:`reset_launches`.
-launches: dict[str, int] = {"ell_gather": 0, "cheb_dia": 0}
+launches: dict[str, int] = {"ell_gather": 0, "ell_gather_cheb": 0,
+                            "cheb_dia": 0}
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -43,12 +44,17 @@ _F64 = ctypes.c_double
 _INT = ctypes.c_int
 _ELL_ARGS = [_VP, _VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I64,
              _VP]
+_ELL_CHEB_ARGS = [_VP, _VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP,
+                  _I64, _I64, _I64, _F64, _F64, _VP]
 _DIA_ARGS = [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _I64, _I64,
              _I64, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _F64, _F64, _VP]
 _SIGNATURES = {
     # rowptr, cols, vals, tile_rows, tile_max, max_row, x, y0, y, R, nb, c,
     # stream
     **{f"ell_gather_{t}": _ELL_ARGS for t in ("f64", "f32", "c128", "c64")},
+    # the same, then x, y0, w1, w2, y, R, nb, c, alpha, beta, stream
+    **{f"ell_gather_cheb_{t}": _ELL_CHEB_ARGS
+       for t in ("f64", "f32", "c128", "c64")},
     # offsets, n_diag, rowptr, ids, vals, vidx, table, n_table, diag,
     # diag_id, tile_rows, tile_max, max_row, x, w1, w2, y, R, Rx, nb, c,
     # alpha, beta, stream

@@ -41,13 +41,16 @@ def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
              w2: torch.Tensor, alpha: float, beta: float, *,
              compact: plan.CompactDia | None = None,
              span: int | None = None,
-             slab: int | None = None) -> torch.Tensor:
+             slab: int | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel. ``x [Rx, n_b]`` with Rx >= R (a halo may be
     appended), ``w1/w2 [R, n_b]``, all of one dtype (fp64, fp32,
     complex128 or complex64; ``alpha`` and ``beta`` are real), contiguous
     and on one CUDA device. ``compact`` and ``span`` are those of
     ``(offsets, dvals)`` (a ``DiaPlan``'s, built once; built here when
-    omitted); ``slab`` forces the slab width."""
+    omitted); ``slab`` forces the slab width; ``out`` [R, n_b]
+    (contiguous, not ``x``, ``w1`` or ``w2``) receives the result,
+    allocated when omitted."""
     if x.device.type != "cuda":
         raise ValueError(f"cheb_dia kernel needs CUDA tensors, got {x.device}")
     offsets = [int(o) for o in offsets]
@@ -78,7 +81,14 @@ def cheb_dia(offsets, dvals: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     if span is None:
         span = plan.span_of_dia(offsets, dvals)
     c = slab_for(x.dtype, span, nb, slab) if nb else 1
-    y = torch.empty((R, nb), dtype=x.dtype, device=x.device)
+    if out is not None and (
+            out.shape != (R, nb) or out.dtype != x.dtype
+            or out.device != x.device or not out.is_contiguous()
+            or any(out.data_ptr() == t.data_ptr() for t in (x, w1, w2))):
+        raise ValueError("cheb_dia: out must be a contiguous [R, n_b] block "
+                         "of x's dtype and device, apart from x, w1, w2")
+    y = (torch.empty((R, nb), dtype=x.dtype, device=x.device)
+         if out is None else out)
     lib = build.load()
     name = _ENTRY[x.dtype]
     offs = (ctypes.c_int * max(len(offsets), 1))(*offsets)

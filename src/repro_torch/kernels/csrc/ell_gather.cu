@@ -1,4 +1,6 @@
-// ELL SpMMV with a threaded accumulator: y = y0 + A·x.
+// ELL SpMMV with a threaded accumulator: y = y0 + A·x, and the same
+// product with the fused Chebyshev epilogue, y = 2a·(y0 + A·x) + 2b·w1 − w2
+// (the ell_gather_cheb_* entries).
 //
 // Replaces: src/repro/kernels/ell_gather.py::ell_gather_spmv (Pallas TPU
 // tile kernel, body _kernel). The TPU kernel re-buckets the ELL block into
@@ -60,13 +62,18 @@ struct EllView {  // the tile's rows, staged or where they lie
   }
 };
 
-template <typename T, int VEC>
+// With EPI the store is the Chebyshev step's epilogue 2a·acc + 2b·w1 − w2
+// (w1, w2 [R, nb] like y), rounded as cheb_dia.cu's is (axpby_sub).
+template <typename T, int VEC, bool EPI>
 struct EllOp {
   static constexpr int kHeader = 0;
   const int* rowptr;
   const int* cols;
   const T* vals;
   const T* y0;  // nullptr: start from 0
+  const T* w1;  // EPI only
+  const T* w2;
+  typename RealOf<T>::type a2, b2;  // EPI: 2·alpha, 2·beta (real)
   long long rp_cap, cols_cap;  // shared bytes of the staged parts
   bool staged;  // false: rows too wide to stage, read in place
 
@@ -98,8 +105,26 @@ struct EllOp {
     }
   }
   __device__ void finish(const T* acc, T* y, long long e, bool in) const {
-    if (in) VecIO<T, VEC>::st_stream(y + e, acc);
+    if (!in) return;
+    if (!EPI) {
+      VecIO<T, VEC>::st_stream(y + e, acc);
+      return;
+    }
+    T a[VEC], b[VEC], out[VEC];
+    VecIO<T, VEC>::ld(w1 + e, a);
+    VecIO<T, VEC>::ld_stream(w2 + e, b);
+#pragma unroll
+    for (int w = 0; w < VEC; ++w) out[w] = axpby_sub(a2, acc[w], b2, a[w], b[w]);
+    VecIO<T, VEC>::st_stream(y + e, out);
   }
+};
+
+// The epilogue's operands (w1 == nullptr: none).
+template <typename T>
+struct EllEpi {
+  const T* w1;
+  const T* w2;
+  typename RealOf<T>::type a2, b2;
 };
 
 struct EllArgs {
@@ -115,10 +140,11 @@ struct EllArgs {
 // One pass of rows a tile (at most tile_rows), halved while the tile's
 // entries would not fit kSmemMax; a row too wide to stage alone is read
 // from device memory where it lies.
-template <typename T, int VEC>
+template <typename T, int VEC, bool EPI>
 static cudaError_t sweep_ell(const SweepPlan& p, const EllArgs& a, const T* x,
-                             const T* y0, T* y, long long R, long long nb,
-                             long long c, cudaStream_t s) {
+                             const T* y0, const EllEpi<T>& ep, T* y,
+                             long long R, long long nb, long long c,
+                             cudaStream_t s) {
   long long rp_cap = 0, cols_cap = 0, vals_cap = 0;
   const auto fits = [&](long long rows) {
     const long long n =
@@ -135,43 +161,64 @@ static cudaError_t sweep_ell(const SweepPlan& p, const EllArgs& a, const T* x,
   // a tile may hold fewer rows than the CTA's threads cover in one pass
   const Sweep sw = make_sweep(R, nb, c, p, (int)rows,
                               staged ? rp_cap + cols_cap + vals_cap : 0);
-  const EllOp<T, VEC> op{a.rowptr, a.cols, static_cast<const T*>(a.vals), y0,
-                         rp_cap, cols_cap, staged};
+  const EllOp<T, VEC, EPI> op{a.rowptr, a.cols,
+                              static_cast<const T*>(a.vals), y0, ep.w1,
+                              ep.w2, ep.a2, ep.b2, rp_cap, cols_cap, staged};
   return run_sweep<T, VEC>(p, op, x, y, sw, s);
+}
+
+template <typename T, int VEC>
+static cudaError_t sweep_ell(const SweepPlan& p, const EllArgs& a, const T* x,
+                             const T* y0, const EllEpi<T>& ep, T* y,
+                             long long R, long long nb, long long c,
+                             cudaStream_t s) {
+  return ep.w1 != nullptr
+             ? sweep_ell<T, VEC, true>(p, a, x, y0, ep, y, R, nb, c, s)
+             : sweep_ell<T, VEC, false>(p, a, x, y0, ep, y, R, nb, c, s);
 }
 
 // ------------------------------------------------------------- entries --
 
+// w1_ == nullptr: no epilogue (w2_, alpha and beta unused).
 template <typename T>
 static int launch_ell_gather(const EllArgs& a, const void* x_,
-                             const void* y0_, void* y_, long long R,
-                             long long nb, long long c, void* stream) {
+                             const void* y0_, const void* w1_,
+                             const void* w2_, double alpha, double beta,
+                             void* y_, long long R, long long nb, long long c,
+                             void* stream) {
   if (R == 0 || nb == 0) return (int)cudaGetLastError();
   if (c < 1 || c > nb || a.tile_rows < 1 ||
       (a.tile_rows & (a.tile_rows - 1)) != 0 || a.tile_max < 0 ||
-      a.max_row < 0)
+      a.max_row < 0 || (w1_ != nullptr) != (w2_ != nullptr))
     return (int)cudaErrorInvalidValue;
   const T* x = static_cast<const T*>(x_);
   const T* y0 = static_cast<const T*>(y0_);
   T* y = static_cast<T*>(y_);
+  using Real = typename RealOf<T>::type;
+  const EllEpi<T> ep{static_cast<const T*>(w1_), static_cast<const T*>(w2_),
+                     Real(2.0 * Real(alpha)), Real(2.0 * Real(beta))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const SweepPlan p =
-      plan_sweep<T>(nb, c, aligned16(x) && aligned16(y0) && aligned16(y));
+  const SweepPlan p = plan_sweep<T>(
+      nb, c, aligned16(x) && aligned16(y0) && aligned16(y) &&
+                 aligned16(ep.w1) && aligned16(ep.w2));
   constexpr int VW = 16 / sizeof(T);
   const cudaError_t e =
-      p.vec == VW ? sweep_ell<T, VW>(p, a, x, y0, y, R, nb, c, s)
-                  : sweep_ell<T, 1>(p, a, x, y0, y, R, nb, c, s);
+      p.vec == VW ? sweep_ell<T, VW>(p, a, x, y0, ep, y, R, nb, c, s)
+                  : sweep_ell<T, 1>(p, a, x, y0, ep, y, R, nb, c, s);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace repro_torch
 
 // rowptr int32 [R + 1], cols int32 [nnz] and vals [nnz] the padding-free
-// form (kernels/plan.py::CompactEll), cols indexing rows of x; tile_max
-// the most entries in any tile_rows rows from a multiple of tile_rows (a
-// power of two), max_row in a row; x [Rx, nb], y0/y [R, nb] row-major; y0
-// may be null; c the slab width (1 <= c <= nb).
-#define ELL_GATHER_ENTRY(NAME, T)                                            \
+// form (kernels/plan.py::CompactEll; nnz may be 0), cols indexing rows of
+// x; tile_max the most entries in any tile_rows rows from a multiple of
+// tile_rows (a power of two), max_row in a row; x [Rx, nb], y0/y [R, nb]
+// row-major; y0 may be null and may be y (each element is read before it
+// is written, by the same thread); c the slab width (1 <= c <= nb).
+// The ell_gather_cheb_* entries also take w1, w2 [R, nb] (not y) and the
+// real alpha, beta, and store 2a·(y0 + A·x) + 2b·w1 − w2.
+#define ELL_GATHER_ENTRY(NAME, CHEB, T)                                      \
   extern "C" int NAME(const void* rowptr, const void* cols,                 \
                       const void* vals, long long tile_rows,                \
                       long long tile_max, long long max_row, const void* x, \
@@ -180,10 +227,25 @@ static int launch_ell_gather(const EllArgs& a, const void* x_,
     const repro_torch::EllArgs a{static_cast<const int*>(rowptr),           \
                                  static_cast<const int*>(cols), vals,       \
                                  tile_rows, tile_max, max_row};             \
-    return repro_torch::launch_ell_gather<T>(a, x, y0, y, R, nb, c, stream); \
+    return repro_torch::launch_ell_gather<T>(a, x, y0, nullptr, nullptr,    \
+                                             0.0, 0.0, y, R, nb, c,         \
+                                             stream);                       \
+  }                                                                          \
+  extern "C" int CHEB(const void* rowptr, const void* cols,                 \
+                      const void* vals, long long tile_rows,                \
+                      long long tile_max, long long max_row, const void* x, \
+                      const void* y0, const void* w1, const void* w2,       \
+                      void* y, long long R, long long nb, long long c,      \
+                      double alpha, double beta, void* stream) {            \
+    if (w1 == nullptr || w2 == nullptr) return (int)cudaErrorInvalidValue;  \
+    const repro_torch::EllArgs a{static_cast<const int*>(rowptr),           \
+                                 static_cast<const int*>(cols), vals,       \
+                                 tile_rows, tile_max, max_row};             \
+    return repro_torch::launch_ell_gather<T>(a, x, y0, w1, w2, alpha, beta, \
+                                             y, R, nb, c, stream);          \
   }
 
-ELL_GATHER_ENTRY(ell_gather_f64, double)
-ELL_GATHER_ENTRY(ell_gather_f32, float)
-ELL_GATHER_ENTRY(ell_gather_c128, repro_torch::c128)
-ELL_GATHER_ENTRY(ell_gather_c64, repro_torch::c64)
+ELL_GATHER_ENTRY(ell_gather_f64, ell_gather_cheb_f64, double)
+ELL_GATHER_ENTRY(ell_gather_f32, ell_gather_cheb_f32, float)
+ELL_GATHER_ENTRY(ell_gather_c128, ell_gather_cheb_c128, repro_torch::c128)
+ELL_GATHER_ENTRY(ell_gather_c64, ell_gather_cheb_c64, repro_torch::c64)

@@ -14,7 +14,8 @@ forces it, for tests and for ``chip_smoke.py``'s sweep. Which of the two
 kernels carries a fused
 Chebyshev step is a structural choice made once, at operator build time
 (``core/spmv.py``): the DIA whole-step when :func:`plan_dia` accepts the
-operator, the ELL contraction plus epilogue otherwise.
+operator (and it needs no halo), the ELL contraction whose last block
+carries the fused epilogue otherwise.
 """
 from __future__ import annotations
 
@@ -34,33 +35,44 @@ DIA_MAX_DIAGS = 64
 
 
 def ell_spmv(cols, vals, x, y0=None, *, compact: CompactEll | None = None,
-             slab: int | None = None):
+             slab: int | None = None, epilogue: tuple | None = None,
+             out=None):
     """``y0 + A·x`` for one ELL block ``cols/vals [R, W]`` (``y0 = 0``
-    when omitted), per row in slot order. The kernel reads the
+    when omitted), per row in slot order; with ``epilogue = (w1, w2,
+    alpha, beta)`` the Chebyshev step ``2a·(y0 + A·x) + 2b·w1 − w2``
+    (the last block of a fused step's chain). The kernel reads the
     padding-free form of the block (``compact``, built once per operator;
     built here when omitted), the plain version ``cols/vals``; ``slab``
-    forces the kernel's slab width (the plain version has none)."""
+    forces the kernel's slab width (the plain version has none). ``out``
+    [R, n_b], when given, receives the result (it may be ``y0``)."""
     if x.device.type == "cpu":
         acc = y0 if y0 is not None else torch.zeros(
             (cols.shape[0], x.shape[1]), dtype=torch.result_type(vals, x))
-        return ref.ell_spmv_acc_ref(acc, cols, vals, x)
+        y = ref.ell_spmv_acc_ref(acc, cols, vals, x)
+        if epilogue is not None:
+            w1, w2, alpha, beta = epilogue
+            y = ref.cheb_epilogue(y, w1, w2, alpha, beta)
+        return y if out is None else out.copy_(y)
     from .ell_gather import ell_gather_spmv
 
-    return ell_gather_spmv(cols, vals, x, y0, compact=compact, slab=slab)
+    return ell_gather_spmv(cols, vals, x, y0, compact=compact, slab=slab,
+                           epilogue=epilogue, out=out)
 
 
 def cheb_dia(offsets, dvals, x, w1, w2, alpha, beta, *,
              compact: CompactDia | None = None, span: int | None = None,
-             slab: int | None = None):
+             slab: int | None = None, out=None):
     """Fused Chebyshev DIA step ``2a·(A@x) + 2b·w1 − w2``. The kernel
     reads the compact form of ``dvals`` (a :class:`DiaPlan`'s ``compact``,
-    built once; built here when omitted), the plain version ``dvals``."""
+    built once; built here when omitted), the plain version ``dvals``.
+    ``out`` [R, n_b], when given, receives the result."""
     if x.device.type == "cpu":
-        return ref.cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta)
+        y = ref.cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta)
+        return y if out is None else out.copy_(y)
     from .cheb_dia import cheb_dia as kernel
 
     return kernel(offsets, dvals, x, w1, w2, alpha, beta, compact=compact,
-                  span=span, slab=slab)
+                  span=span, slab=slab, out=out)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,18 @@
-"""Eigensolver launcher: FD on a ScaMaC-style matrix, one device, stack
-layout (the port's counterpart of ``repro.launch.solve``).
+"""Eigensolver launcher: FD on a ScaMaC-style matrix on one device, in
+the stack layout over ``--n-row`` row shards (the port's counterpart of
+``repro.launch.solve``).
 
   PYTHONPATH=src python -m repro_torch.launch.solve --family Hubbard \\
       --params n_sites=12,n_fermions=6,U=25,ranpot=1 --n-target 16 \\
       --n-search 512 --target -20 --layout stack --spmv-kernel
+  PYTHONPATH=src python -m repro_torch.launch.solve --family RoadNet \\
+      --params n=4000,w=2,m=256,k=4 --n-target 4 --n-search 16 \\
+      --target 12.94 --tol 1e-8 --n-row 4 --spmv-overlap --device cpu
+
+``--n-row P`` runs the horizontal layer: P row shards of the search block
+on the one device, their halo exchange and TSQR's butterfly as device
+copies between the shards (``core/shards.py``), through the engine that
+``--spmv-overlap``, ``--spmv-comm`` and ``--spmv-schedule`` name.
 
 Every family of ``repro_torch.matrices`` is taken: Hubbard, SpinChainXXZ,
 Exciton and TopIns (complex; the fused step runs the DIA kernel), RoadNet
@@ -47,10 +56,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--target", type=float, default=0.0)
     ap.add_argument("--tol", type=float, default=1e-10)
     ap.add_argument("--max-iters", type=int, default=40)
+    ap.add_argument("--n-row", type=int, default=1,
+                    help="horizontal-layer width N_row: D sliced over N_row "
+                         "row shards on the one device; the SpMV's halo "
+                         "exchange runs between them (a power of two with "
+                         "--ortho tsqr)")
+    ap.add_argument("--n-col", type=int, default=1, choices=[1],
+                    help="vertical-layer width N_col (only 1: the vertical "
+                         "layer is not ported yet)")
     ap.add_argument("--layout", default="stack", choices=["stack"],
-                    help="filter-phase vector layout; one device runs the "
-                         "stack layout (the others come with the "
-                         "horizontal and vertical layers)")
+                    help="filter-phase vector layout; the stack layout "
+                         "(panel and pillar come with the vertical layer)")
+    ap.add_argument("--spmv-overlap", action="store_true",
+                    help="split-phase SpMV engine: the halo exchange runs "
+                         "on a side stream while the local block "
+                         "contracts, then the halo block")
+    ap.add_argument("--spmv-comm", default="a2a",
+                    choices=["a2a", "compressed"],
+                    help="halo exchange: 'a2a' (one all_to_all padded to "
+                         "the largest pair volume L) or 'compressed' "
+                         "(permutation rounds padded per round, empty "
+                         "pairs skipped; with --spmv-overlap the halo "
+                         "block contracts once every round has landed)")
+    ap.add_argument("--spmv-schedule", default="cyclic",
+                    choices=["cyclic", "matching"],
+                    help="rounds of the compressed exchange: one per "
+                         "nonzero cyclic shift, or greedy max-weight "
+                         "matchings")
     ap.add_argument("--spmv-kernel", action="store_true",
                     help="run every SpMV in the CUDA ELL kernel and every "
                          "fused Chebyshev step in the CUDA DIA kernel where "
@@ -71,7 +103,9 @@ def config_from_args(args) -> FDConfig:
     return FDConfig(n_target=args.n_target, n_search=args.n_search,
                     target=args.target, tol=args.tol, max_iters=args.max_iters,
                     layout=args.layout, spmv_kernel=args.spmv_kernel,
-                    dtype=args.dtype, ortho=args.ortho)
+                    spmv_overlap=args.spmv_overlap, spmv_comm=args.spmv_comm,
+                    spmv_schedule=args.spmv_schedule, dtype=args.dtype,
+                    ortho=args.ortho)
 
 
 def main(argv=None, verbose: bool = True):
@@ -80,11 +114,17 @@ def main(argv=None, verbose: bool = True):
     fd = config_from_args(args)
     mat = get_family(args.family, **parse_params(args.params))
     t0 = time.perf_counter()
-    res = FilterDiag(mat, fd, device=args.device).solve(verbose=verbose)
+    solver = FilterDiag(mat, fd, device=args.device, n_row=args.n_row)
+    res = solver.solve(verbose=verbose)
     wall = time.perf_counter() - t0
     print(f"converged {res.n_converged} eigenpairs in {res.iterations} "
           f"iterations / {res.total_spmvs} SpMVs ({wall:.3f} s on "
-          f"{args.device})")
+          f"{args.device}, {solver.layout.describe()})")
+    if solver.P > 1:
+        ex = res.exchange
+        print(f"shard collectives ({ex['engine']} SpMV, L={ex['L']}; device "
+              "copies between the shards' rows): bytes "
+              + ", ".join(f"{k}={v}" for k, v in ex["bytes"].items()))
     print("eigenvalues:", np.array2string(res.eigenvalues, precision=10))
     print("kernel launches:", ", ".join(f"{k}={v}"
                                         for k, v in build.launches.items()))

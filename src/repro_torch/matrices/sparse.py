@@ -1,13 +1,13 @@
 """Minimal host-side CSR (numpy, real or complex values): the
 explicit-matrix input of the solver and the host re-check of returned
-eigenpairs."""
+eigenpairs; and the paper's uniform row partition of the χ metrics."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
 
-__all__ = ["CSR", "csr_from_coo"]
+__all__ = ["CSR", "csr_from_coo", "uniform_partition"]
 
 
 @dataclasses.dataclass
@@ -49,6 +49,11 @@ class CSR:
 
         return scipy.sparse.csr_matrix((self.data, self.indices, self.indptr),
                                        shape=self.shape)
+
+
+def uniform_partition(D: int, P: int) -> np.ndarray:
+    """Row boundaries k_0..k_P (Eq. in Sec 3.4): k_p = round(p * D / P)."""
+    return np.round(np.arange(P + 1) * (D / P)).astype(np.int64)
 
 
 def csr_from_coo(rows, cols, vals, shape) -> CSR:

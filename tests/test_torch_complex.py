@@ -79,7 +79,7 @@ def test_complex128_spmv_and_fused_step_bitwise(mesh, key, nb):
     w2 = _crandn(rng, (tm.D, nb))
     a, b = 0.37, -0.21
     y_ref, s_ref = _reference(mesh, key, np.complex128, x, w2, a, b)
-    tell = build_dist_ell(tm, 1)
+    tell = build_dist_ell(tm, 1, device="cpu")
     assert tell.vals.dtype == torch.complex128
     for use_kernel in (False, True):
         y = make_spmv(tell, use_kernel=use_kernel)(_t(x))
@@ -88,13 +88,13 @@ def test_complex128_spmv_and_fused_step_bitwise(mesh, key, nb):
         assert hasattr(step, "dia") == use_kernel  # the DIA route when on
         s = step(_t(x), _t(w2), a, b)
         assert np.array_equal(s.numpy(), s_ref)
-    dia = step.dia
+    dia, = step.dia
     cp = dia.compact
     assert cp.table is not None and cp.table.dtype == torch.complex128
     for c in sorted({1, 3, nb}):
         if c > nb:
             continue
-        got = ref.ell_spmv_slab_ref(tell.cols, tell.vals, _t(x), None, c)
+        got = ref.ell_spmv_slab_ref(tell.cols[0], tell.vals[0], _t(x), None, c)
         assert np.array_equal(got.numpy(), y_ref)
         got = ref.cheb_dia_compact_ref(dia.offsets, cp, _t(x), _t(x), _t(w2),
                                        a, b, c)
@@ -112,7 +112,7 @@ def test_complex64_spmv_and_fused_step_within_tolerance(mesh, key):
     x = _crandn(rng, (tm.D, 6), np.complex64)
     w2 = _crandn(rng, (tm.D, 6), np.complex64)
     y_ref, s_ref = _reference(mesh, key, np.complex64, x, w2, 0.37, -0.21)
-    tell = build_dist_ell(tm, 1, dtype="float32")
+    tell = build_dist_ell(tm, 1, dtype="float32", device="cpu")
     assert tell.vals.dtype == torch.complex64
     for use_kernel in (False, True):
         y = make_spmv(tell, use_kernel=use_kernel)(_t(x)).numpy()
@@ -175,8 +175,8 @@ def test_dia_matches_matrix_family():
     y = ops.cheb_dia(tuple(offsets), _t(dvals), _t(x), _t(w), _t(w), 0.5, 0.0)
     y_ref = csr.matvec(x[: fam.D])
     np.testing.assert_allclose(y.numpy()[: fam.D], y_ref, rtol=2e-4, atol=2e-4)
-    ell = build_dist_ell(fam, 1)
-    dia = ops.plan_dia(ell.cols, ell.vals, ell.R)
+    ell = build_dist_ell(fam, 1, device="cpu")
+    dia = ops.plan_dia(ell.cols[0], ell.vals[0], ell.R)
     x128 = _t(x[: fam.D].astype(np.complex128))
     w128 = torch.zeros_like(x128)
     y = ops.cheb_dia(dia.offsets, dia.dvals, x128, w128, w128, 0.5, 0.0)
@@ -190,8 +190,8 @@ def test_complex_compact_dia_form(fam):
     the main diagonal in a table (Exciton: −t and the spin-orbit entries,
     TopIns: the hop blocks' entries), the Coulomb term dense on the main
     diagonal; it rebuilds dvals exactly."""
-    ell = build_dist_ell(fam, 1)
-    dia = ops.plan_dia(ell.cols, ell.vals, ell.R)
+    ell = build_dist_ell(fam, 1, device="cpu")
+    dia = ops.plan_dia(ell.cols[0], ell.vals[0], ell.R)
     cp = dia.compact
     assert cp.table is not None and cp.vals is None
     assert 1 < cp.table.numel() <= plan.TABLE_MAX and cp.vidx is not None
@@ -206,13 +206,16 @@ def test_convert_carries_complex_objects():
     jm = JExciton(L=2)
     jell = jbuild(jm, 1, dtype=np.complex128)
     cell = convert.dist_ell_from_arrays(np.asarray(jell.cols),
-                                        np.asarray(jell.vals), D=jell.D)
-    tell = build_dist_ell(Exciton(L=2), 1)
+                                        np.asarray(jell.vals), D=jell.D,
+                                        device="cpu")
+    tell = build_dist_ell(Exciton(L=2), 1, device="cpu")
     assert torch.equal(cell.vals, tell.vals) and cell.span == tell.span
-    dia = ops.plan_dia(tell.cols, tell.vals, tell.R)
-    cdia = convert.dia_plan_from_arrays(dia.offsets, dia.dvals.numpy()[None])
+    dia = ops.plan_dia(tell.cols[0], tell.vals[0], tell.R)
+    cdia = convert.dia_plan_from_arrays(dia.offsets, dia.dvals.numpy()[None],
+                                        device="cpu")
     assert cdia.offsets == dia.offsets and torch.equal(cdia.dvals, dia.dvals)
     V = _crandn(np.random.default_rng(1), (jm.D, 4))
-    st = convert.fd_state_from_arrays(V, (-9.5, 13.5), iteration=2)
+    st = convert.fd_state_from_arrays(V, (-9.5, 13.5), iteration=2,
+                                      device="cpu")
     assert st.V.dtype == torch.complex128 and np.array_equal(st.V.numpy(), V)
     assert st.lam == (-9.5, 13.5) and st.iteration == 2

@@ -193,7 +193,7 @@ def test_slab_rule_on_the_main_operator(card):
 
     ell = build_dist_ell(Hubbard(12, 6, U=25.0, ranpot=1.0), 1, device=card)
     assert ell.span == 232_848
-    dia = ops.plan_dia(ell.cols, ell.vals, ell.R, device=card)
+    dia = ops.plan_dia(ell.cols[0], ell.vals[0], ell.R, device=card)
     assert dia.span == 232_848 and len(dia.offsets) == 61
     assert dia_slab(torch.float64, dia.span, 512) == 32
     assert dia_slab(torch.float32, dia.span, 512) == 64
@@ -243,7 +243,7 @@ def test_complex_operator_steps_bitwise(card, fam, dtype):
     from repro_torch.core import build_dist_ell, make_fused_cheb_step, make_spmv
 
     ell = build_dist_ell(fam, 1, dtype=dtype, device=card)
-    dia = ops.plan_dia(ell.cols, ell.vals, ell.R, device=card)
+    dia = ops.plan_dia(ell.cols[0], ell.vals[0], ell.R, device=card)
     assert dia is not None and dia.compact.table is not None
     spmv = make_spmv(ell, use_kernel=True)
     step = make_fused_cheb_step(ell, use_kernel=True)
@@ -259,7 +259,7 @@ def test_complex_operator_steps_bitwise(card, fam, dtype):
         torch.cuda.synchronize()
         assert build.launches["ell_gather"] == n0["ell_gather"] + 1
         assert build.launches["cheb_dia"] == n0["cheb_dia"] + 1
-        assert torch.equal(y, ref.ell_spmv_ref(ell.cols, ell.vals, x))
+        assert torch.equal(y, ref.ell_spmv_ref(ell.cols[0], ell.vals[0], x))
         assert torch.equal(s, ref.cheb_dia_ref(dia.offsets, dia.dvals, x, x, w2,
                                                0.31, -0.27))
 
@@ -281,7 +281,7 @@ def test_complex_solve_goes_through_both_kernels(card):
 
 def test_graph_solve_takes_the_ell_route(card):
     """RoadNet has no DIA form: a kernel-on solve runs every fused step as
-    the ELL kernel plus the torch epilogue (no DIA launch) and matches
+    the ELL kernel with its fused epilogue (no DIA launch) and matches
     dense eigh at the upper edge."""
     mat = RoadNet(n=4000, w=2, m=256, k=4)
     w = np.linalg.eigvalsh(mat.build_csr().to_dense())
@@ -293,3 +293,158 @@ def test_graph_solve_takes_the_ell_route(card):
     np.testing.assert_allclose(np.sort(res.eigenvalues)[-4:], w[-4:], atol=1e-7)
     assert build.launches["cheb_dia"] == 0
     assert build.launches["ell_gather"] > cfg.lanczos_steps
+    assert build.launches["ell_gather_cheb"] > 0
+
+
+# ------------------------------------------- the horizontal layer (P > 1) --
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,Rx,W,nb", [(1000, 1500, 9, 1), (777, 900, 0, 37),
+                                       (513, 600, 5, 100), (256, 300, 3, 8)])
+def test_ell_epilogue_entry_vs_plain(card, R, Rx, W, nb, dtype):
+    """The ``ell_gather_cheb`` entry, ``2a·(y0 + A·x) + 2b·w1 − w2``, with
+    and without ``y0``, against ``ref.cheb_epilogue(ref.ell_spmv_acc_ref(
+    ...))``: bit-equal in fp64 and complex128, within 1e-5 in fp32 and
+    complex64; ragged R and n_b, and an empty block (W = 0); ``out`` may
+    be ``y0``."""
+    g = torch.Generator(device=card).manual_seed(R + W)
+    cols = torch.randint(0, Rx, (R, W), generator=g, device=card,
+                         dtype=torch.int32)
+    vals = torch.randn((R, W), generator=g, device=card, dtype=dtype)
+    if W:
+        vals[torch.rand((R, W), generator=g, device=card) < 0.2] = 0
+    x, = (torch.randn((Rx, nb), generator=g, device=card, dtype=dtype),)
+    y0, w2 = (torch.randn((R, nb), generator=g, device=card, dtype=dtype)
+              for _ in range(2))
+    w1 = x[:R].contiguous()
+    a, b = 0.013, -0.4
+    n0 = build.launches["ell_gather_cheb"]
+    for start in (None, y0):
+        got = ops.ell_spmv(cols, vals, x, start, epilogue=(w1, w2, a, b))
+        acc = start if start is not None else torch.zeros_like(y0)
+        want = ref.cheb_epilogue(ref.ell_spmv_acc_ref(acc, cols, vals, x),
+                                 w1, w2, a, b)
+        torch.cuda.synchronize()
+        if dtype in (torch.float64, torch.complex128):
+            assert torch.equal(got, want)
+        else:
+            err = (got - want).abs().max() / want.abs().max()
+            assert err <= _tol(dtype)
+    inplace = y0.clone()
+    ops.ell_spmv(cols, vals, x, inplace, epilogue=(w1, w2, a, b), out=inplace)
+    assert torch.equal(inplace, ops.ell_spmv(cols, vals, x, y0,
+                                             epilogue=(w1, w2, a, b)))
+    assert build.launches["ell_gather_cheb"] == n0 + 4
+    with pytest.raises(ValueError, match="out may not be"):
+        ops.ell_spmv(cols, vals, x, y0, epilogue=(w1, w2, a, b), out=w2)
+    with pytest.raises(ValueError, match="w2"):
+        ops.ell_spmv(cols, vals, x, y0, epilogue=(w1, w2[:-1], a, b))
+
+
+ENGINES = [("a2a", "cyclic", False, True), ("a2a", "cyclic", True, True),
+           ("compressed", "cyclic", False, True),
+           ("compressed", "cyclic", True, False),
+           ("compressed", "cyclic", True, True),
+           ("compressed", "matching", False, True),
+           ("compressed", "matching", True, False),
+           ("compressed", "matching", True, True)]
+
+
+@pytest.mark.parametrize("fam,P,dtype", [
+    (RoadNet(n=4000, w=2, m=256, k=4), 8, torch.float64),
+    (Exciton(L=2), 4, torch.complex128),
+    (Hubbard(6, 3, U=4.0, ranpot=1.0), 8, torch.float32),
+], ids=["roadnet-8", "exciton-4", "hubbard-8-fp32"])
+def test_engines_on_the_card_bitwise(card, fam, P, dtype):
+    """Every engine, kernels on, SpMV and fused step: equal to the same
+    engine built from the plain versions on the card, and to the a2a
+    plain engine; the split-phase engines (side stream) repeated in a
+    loop stay equal; the exchange bytes are those of the CPU run."""
+    from repro_torch.core import (ShardGroup, build_dist_ell,
+                                  make_fused_cheb_step, make_spmv)
+
+    ell = build_dist_ell(fam, P, dtype=str(dtype).split(".")[1], device=card)
+    g = torch.Generator(device=card).manual_seed(P)
+    x, w2 = (torch.randn((ell.D_pad, 19), generator=g, device=card,
+                         dtype=dtype) for _ in range(2))
+    x[ell.D:] = 0
+    w2[ell.D:] = 0
+    base = None
+    for comm, sched, ov, pipe in ENGINES:
+        kw = dict(overlap=ov, comm=comm, schedule=sched, pipeline=pipe)
+        gk, gp = ShardGroup(P, card), ShardGroup(P, card)
+        spmv = make_spmv(ell, group=gk, use_kernel=True, **kw)
+        step = make_fused_cheb_step(ell, group=gk, use_kernel=True, **kw)
+        n0 = dict(build.launches)
+        y, s = spmv(x), step(x, w2, 0.21, -0.33)
+        assert build.launches["ell_gather"] > n0["ell_gather"]
+        assert build.launches["ell_gather_cheb"] == n0["ell_gather_cheb"] + P
+        assert build.launches["cheb_dia"] == n0["cheb_dia"]
+        y_p = make_spmv(ell, group=gp, **kw)(x)
+        s_p = make_fused_cheb_step(ell, group=gp, **kw)(x, w2, 0.21, -0.33)
+        torch.cuda.synchronize()
+        assert gk.bytes == gp.bytes
+        if dtype == torch.float32:
+            assert (y - y_p).abs().max() <= 1e-5 * y_p.abs().max()
+            assert (s - s_p).abs().max() <= 1e-5 * s_p.abs().max()
+        else:
+            assert torch.equal(y, y_p) and torch.equal(s, s_p)
+        if base is None:
+            base = (y, s)
+        assert torch.equal(y, base[0]) and torch.equal(s, base[1])
+        if ov:
+            for _ in range(20):
+                assert torch.equal(step(x, w2, 0.21, -0.33), s)
+
+
+def test_zero_halo_operator_takes_the_dia_step_per_shard(card):
+    """A block-diagonal operator at P = 4 (L = 0): the fused step runs the
+    DIA kernel once per shard, equal bit for bit to the ELL route."""
+    from repro_torch.core import build_dist_ell, make_fused_cheb_step
+    from repro_torch.matrices import csr_from_coo
+
+    D, P = 4002, 4
+    R = -(-D // P)
+    r = np.arange(D)
+    c = np.concatenate([r, r[:-1], r[1:]])
+    rows = np.concatenate([r, r[1:], r[:-1]])
+    keep = rows // R == c // R
+    vals = np.where(rows == c, 2.0, -1.0)[keep]
+    A = csr_from_coo(rows[keep], c[keep], vals, (D, D))
+    ell = build_dist_ell(A, P, device=card)
+    assert ell.L == 0
+    g = torch.Generator(device=card).manual_seed(3)
+    x, w2 = (torch.randn((ell.D_pad, 64), generator=g, device=card,
+                         dtype=torch.float64) for _ in range(2))
+    step = make_fused_cheb_step(ell, use_kernel=True)
+    assert step.kind == "dia"
+    n0 = build.launches["cheb_dia"]
+    got = step(x, w2, 0.4, 0.1)
+    assert build.launches["cheb_dia"] == n0 + P
+    want = make_fused_cheb_step(ell)(x, w2, 0.4, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_row_shard_solve_on_the_card(card):
+    """RoadNet(4000) at P = 4 (a2a split-phase) and P = 8 (compressed
+    split-phase): each matches dense eigh at the upper edge, with no DIA
+    launch, and the two agree to 1e-9."""
+    mat = RoadNet(n=4000, w=2, m=256, k=4)
+    w = np.linalg.eigvalsh(mat.build_csr().to_dense())
+    out = []
+    for P, eng in ((4, dict(spmv_overlap=True)),
+                   (8, dict(spmv_overlap=True, spmv_comm="compressed"))):
+        build.reset_launches()
+        cfg = FDConfig(n_target=4, n_search=16, target=float(w[-1]) + 0.1,
+                       tol=1e-8, max_iters=40, layout="stack",
+                       spmv_kernel=True, **eng)
+        fd = FilterDiag(mat, cfg, n_row=P)
+        res = fd.solve(generator=torch.Generator(device=card).manual_seed(1))
+        assert res.n_converged >= 4
+        np.testing.assert_allclose(np.sort(res.eigenvalues)[-4:], w[-4:],
+                                   atol=1e-7)
+        assert build.launches["cheb_dia"] == 0
+        assert build.launches["ell_gather_cheb"] > 0
+        out.append(np.sort(res.eigenvalues)[-4:])
+    np.testing.assert_allclose(out[0], out[1], rtol=0, atol=1e-9)

@@ -123,18 +123,19 @@ def test_operator_build_equals_reference(fam, params, dtype):
     if jm.is_complex:
         wd = np.dtype(np.complex128 if dtype == "float64" else np.complex64)
     jell = jbuild(jm, 1, dtype=wd)
-    tell = build_dist_ell(tm, 1, dtype=dtype)
+    tell = build_dist_ell(tm, 1, dtype=dtype, device="cpu")
     assert tell.vals.numpy().dtype == wd
-    assert np.array_equal(tell.cols.numpy(), np.asarray(jell.cols)[0])
-    assert np.array_equal(tell.vals.numpy(), np.asarray(jell.vals)[0])
+    assert np.array_equal(tell.cols.numpy(), np.asarray(jell.cols))
+    assert np.array_equal(tell.vals.numpy(), np.asarray(jell.vals))
     cell = convert.dist_ell_from_arrays(np.asarray(jell.cols),
-                                        np.asarray(jell.vals), D=jell.D)
+                                        np.asarray(jell.vals), D=jell.D,
+                                        device="cpu")
     assert torch.equal(cell.cols, tell.cols) and torch.equal(cell.vals, tell.vals)
     assert cell.span == tell.span
-    dia = ops.plan_dia(tell.cols, tell.vals, tell.R)
+    dia = ops.plan_dia(tell.cols[0], tell.vals[0], tell.R)
     rows = np.arange(tell.R)[:, None]
-    stored = tell.vals.numpy() != 0
-    n_diag = len(np.unique((tell.cols.numpy() - rows)[stored]))
+    stored = tell.vals[0].numpy() != 0
+    n_diag = len(np.unique((tell.cols[0].numpy() - rows)[stored]))
     assert (dia is not None) == (n_diag <= ops.DIA_MAX_DIAGS)
     if fam in ("Exciton", "TopIns"):  # 11 and 26 diagonals at every size
         assert n_diag == {"Exciton": 11, "TopIns": 26}[fam]

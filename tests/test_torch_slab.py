@@ -34,8 +34,8 @@ def _t(a):
 
 def _operator(key):
     _, fam, params = MATS[key]
-    ell = build_dist_ell(fam(**params), 1)
-    return ell, ops.plan_dia(ell.cols, ell.vals, ell.R)
+    ell = build_dist_ell(fam(**params), 1, device="cpu")
+    return ell, ops.plan_dia(ell.cols[0], ell.vals[0], ell.R)
 
 
 def _random_dia(rng, R, Rx, offsets, dtype, sparsity=0.3):
@@ -104,17 +104,17 @@ def test_recorded_span_is_max_distance(key):
     ``max |col − row|`` over the stored entries (padding ignored), and
     carries across ``convert``."""
     ell, dia = _operator(key)
-    cols, vals = ell.cols.numpy(), ell.vals.numpy()
+    cols, vals = ell.cols[0].numpy(), ell.vals[0].numpy()
     rows = np.broadcast_to(np.arange(ell.R)[:, None], cols.shape)
     want = int(np.abs(cols - rows)[vals != 0].max())
     assert want > 0
     assert ell.span == want and dia.span == want
-    assert plan.span_of_ell(ell.cols, ell.vals) == want
+    assert plan.span_of_ell(ell.cols[0], ell.vals[0]) == want
     assert plan.span_of_dia(dia.offsets, dia.dvals) == want
     jm = MATS[key][0](**MATS[key][2])
     jell = jbuild(jm, 1)
     cell = convert.dist_ell_from_arrays(np.asarray(jell.cols),
-                                        np.asarray(jell.vals))
+                                        np.asarray(jell.vals), device="cpu")
     assert cell.span == want
 
 
@@ -123,7 +123,7 @@ def _ell_case(key):
     inside rows, padding at their ends and an empty row."""
     if key in MATS:
         ell, _ = _operator(key)
-        return ell.cols, ell.vals
+        return ell.cols[0], ell.vals[0]
     rng = np.random.default_rng(11)
     R, Rx, W = 700, 900, 9
     cols = rng.integers(0, Rx, size=(R, W)).astype(np.int32)
@@ -209,7 +209,7 @@ def test_ell_keeps_full_width_unless_forced():
     (22,11), span 184,756, included); ``slab=`` still forces a width."""
     from repro_torch.kernels.ell_gather import slab_for
 
-    ell = build_dist_ell(SpinChainXXZ(n_sites=22, n_up=11), 1)
+    ell = build_dist_ell(SpinChainXXZ(n_sites=22, n_up=11), 1, device="cpu")
     assert ell.span == 184_756
     for nb in (1, 64, 512):
         assert slab_for(nb) == nb

@@ -71,7 +71,8 @@ def test_state_carried_across_continues_the_reference(reference):
     cfg = FDConfig(target=reference["cfg"].target, **CASE)
     fd = FilterDiag(SpinChainXXZ(10, 5), cfg, device="cpu")
     state = convert.fd_state_from_arrays(one["V"], one["lam"], iteration=1,
-                                         total_spmvs=one["total_spmvs"])
+                                         total_spmvs=one["total_spmvs"],
+                                         device="cpu")
     state = fd.step_analyze(state)
     jhist = reference["res"].history[1]
     assert state.history[-1]["n_conv"] == jhist["n_conv"]
@@ -134,7 +135,8 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(layout="panel"), dict(spmv_overlap=True), dict(spmv_comm="compressed"),
+    dict(layout="panel"), dict(layout="auto"),
+    dict(spmv_comm="compressed", spmv_sstep=2),
     dict(spmv_sstep=2), dict(spmv_balance="commvol"), dict(spmv_reorder="rcm"),
     dict(layout="pillar"),
 ])

@@ -66,18 +66,20 @@ def test_operator_build_equals_reference(key, dtype):
     carry across through ``convert``."""
     jm, tm = _pair(key)
     jell = jbuild(jm, 1, dtype=np.dtype(dtype))
-    tell = build_dist_ell(tm, 1, dtype=dtype)
-    assert np.array_equal(tell.cols.numpy(), np.asarray(jell.cols)[0])
-    assert np.array_equal(tell.vals.numpy(), np.asarray(jell.vals)[0])
+    tell = build_dist_ell(tm, 1, dtype=dtype, device="cpu")
+    assert np.array_equal(tell.cols.numpy(), np.asarray(jell.cols))
+    assert np.array_equal(tell.vals.numpy(), np.asarray(jell.vals))
     assert tell.vals.numpy().dtype == np.dtype(dtype)
     jdia = jops.plan_dia(np.asarray(jell.cols), np.asarray(jell.vals), jell.R)
-    tdia = ops.plan_dia(tell.cols, tell.vals, tell.R)
+    tdia = ops.plan_dia(tell.cols[0], tell.vals[0], tell.R)
     assert tdia is not None and tdia.offsets == jdia.offsets
     assert np.array_equal(tdia.dvals.numpy(), np.asarray(jdia.dvals)[0])
     cell = convert.dist_ell_from_arrays(np.asarray(jell.cols),
-                                        np.asarray(jell.vals), D=jell.D)
+                                        np.asarray(jell.vals), D=jell.D,
+                                        device="cpu")
     assert torch.equal(cell.cols, tell.cols) and torch.equal(cell.vals, tell.vals)
-    cdia = convert.dia_plan_from_arrays(jdia.offsets, np.asarray(jdia.dvals))
+    cdia = convert.dia_plan_from_arrays(jdia.offsets, np.asarray(jdia.dvals),
+                                        device="cpu")
     assert cdia.offsets == tdia.offsets and torch.equal(cdia.dvals, tdia.dvals)
 
 
@@ -100,7 +102,7 @@ def test_spmv_and_fused_step_bitwise(mesh, key, nb):
         a, b = scale_params(-7.3, 11.9)
         y_ref = np.asarray(jspmv(jnp.asarray(x)))
         s_ref = np.asarray(jstep(jnp.asarray(x), jnp.asarray(w2), a, b))
-    tell = build_dist_ell(tm, 1)
+    tell = build_dist_ell(tm, 1, device="cpu")
     for use_kernel in (False, True):
         y = make_spmv(tell, use_kernel=use_kernel)(torch.from_numpy(x))
         assert np.array_equal(y.numpy(), y_ref)
@@ -129,7 +131,7 @@ def test_chebyshev_filter_matches_reference(mesh, use_kernel):
         jspmv = jmake_spmv(mesh, lay, jell)
         want = np.asarray(jax.jit(lambda v: jcheb(jspmv, jnp.asarray(poly.mu),
                                                   a, b, v))(jnp.asarray(V)))
-    tell = build_dist_ell(tm, 1)
+    tell = build_dist_ell(tm, 1, device="cpu")
     fused = make_fused_cheb_step(tell, use_kernel=True) if use_kernel else None
     got = chebyshev_filter(make_spmv(tell, use_kernel=use_kernel), poly.mu,
                            a, b, torch.from_numpy(V), fused_step=fused).numpy()
@@ -148,7 +150,7 @@ def test_lanczos_interval_matches_reference(mesh, key):
         jell = jbuild(jm, 1)
         jspmv = jax.jit(jmake_spmv(mesh, stack(mesh), jell))
         want = jlanczos(jspmv, jm.D, jm.D, jnp.float64, k0, 30)
-    tell = build_dist_ell(tm, 1)
+    tell = build_dist_ell(tm, 1, device="cpu")
     got = lanczos_interval(make_spmv(tell, use_kernel=True), tm.D,
                            torch.float64, "cpu", v0=v0, steps=30)
     scale = want[1] - want[0]
@@ -248,7 +250,7 @@ def test_hubbard_main_path_config_has_a_dia_form():
     """Hubbard(6,3) fits the DIA kernel's 64 diagonals, so the fused
     step takes the DIA route; the main path's Hubbard(12,6) does too
     (61 diagonals), counted on the card by chip_smoke.py."""
-    tell = build_dist_ell(Hubbard(6, 3, U=4.0, ranpot=1.0), 1)
-    dia = ops.plan_dia(tell.cols, tell.vals, tell.R)
+    tell = build_dist_ell(Hubbard(6, 3, U=4.0, ranpot=1.0), 1, device="cpu")
+    dia = ops.plan_dia(tell.cols[0], tell.vals[0], tell.R)
     assert dia is not None and len(dia.offsets) <= ops.DIA_MAX_DIAGS
-    assert build_dist_ell(SpinChainXXZ(10, 5), 1).W == 10
+    assert build_dist_ell(SpinChainXXZ(10, 5), 1, device="cpu").W == 10
