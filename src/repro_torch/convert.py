@@ -7,8 +7,10 @@ same state:
 
 * a ``DistEll`` of P row shards: ``cols/vals [P, R, W]`` (``[R, W]`` is
   taken as one shard), and where given its ``send_idx [P, P, L]``,
-  ``pair_counts``, ``n_vc``, its split-phase blocks and its neighbour
-  plans' arrays;
+  ``pair_counts``, ``n_vc``, its split-phase blocks, its neighbour
+  plans' arrays and its row map;
+* a planned ``RowMap`` (``perm``, ``boundaries``, ``R``, ``P``,
+  ``balance``, ``reorder``, ``sstep``);
 * a ``DiaPlan``'s ``offsets/dvals`` (``[1, n_diag, R]`` or
   ``[n_diag, R]``);
 * an ``FDState``'s search block ``V`` and interval ``lam``.
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .core.filter_diag import FDState
+from .core.partition import RowMap
 from .core.spmv import DistEll, NeighborPlan
 from .device import resolve_device
 from .kernels.ops import DiaPlan
@@ -42,9 +45,10 @@ def _one_shard(a: np.ndarray, ndim: int, what: str) -> np.ndarray:
 
 def _span(cols: np.ndarray, vals: np.ndarray, send_idx: np.ndarray,
           R: int) -> int:
-    """``max |col − row|`` over the stored entries in global numbering: a
-    local column c of shard p is ``p·R + c``, a halo column
-    ``R + q·L + s`` is row ``send_idx[q, p, s]`` of shard q."""
+    """``max |col − row|`` over the stored entries in position numbering
+    (the global one without a row map): a local column c of shard p is
+    ``p·R + c``, a halo column ``R + q·L + s`` is row
+    ``send_idx[q, p, s]`` of shard q."""
     P = cols.shape[0]
     L = send_idx.shape[2]
     c = cols.astype(np.int64)
@@ -60,8 +64,20 @@ def _span(cols: np.ndarray, vals: np.ndarray, send_idx: np.ndarray,
     return span_of(rows[stored], glob[stored])
 
 
+def rowmap_from_arrays(D: int, P: int, perm, boundaries, R: int, *,
+                       balance: str, reorder: str, sstep: int = 1) -> RowMap:
+    """The port's :class:`RowMap` from a reference ``RowMap``'s fields
+    (its host arrays ``perm`` and ``boundaries``, the rest scalars)."""
+    return RowMap(D=int(D), P=int(P), balance=str(balance),
+                  reorder=str(reorder),
+                  perm=np.asarray(perm, dtype=np.int64).copy(),
+                  boundaries=np.asarray(boundaries, dtype=np.int64).copy(),
+                  R=int(R), sstep=int(sstep))
+
+
 def dist_ell_from_arrays(cols, vals, D: int | None = None, *, send_idx=None,
                          pair_counts=None, n_vc=None, split=None, nbr=None,
+                         rowmap: RowMap | None = None,
                          device=None) -> DistEll:
     """The port's operator from a reference ``DistEll``'s arrays.
 
@@ -71,7 +87,11 @@ def dist_ell_from_arrays(cols, vals, D: int | None = None, *, send_idx=None,
     arrays of ``DistEll.split()``; ``nbr`` maps a schedule name to a
     reference ``NeighborPlan`` or to a dict of its ``perms``,
     ``round_L``, ``send_nbr``, ``cols_nbr`` (and, when built,
-    ``cols_halo_nbr`` and ``halo_rounds``)."""
+    ``cols_halo_nbr`` and ``halo_rounds``); ``rowmap`` the map a mapped
+    operator was built on (:func:`rowmap_from_arrays`), at either level
+    (its ``D_pad`` is ``P·R``; the equal-rows ``RowMap.rows(D, P, P·R)``
+    when none is given). The span is taken in position space, as
+    ``build_dist_ell`` takes it."""
     dev = resolve_device(device)
     cols = np.asarray(cols)
     vals = np.asarray(vals)
@@ -87,17 +107,22 @@ def dist_ell_from_arrays(cols, vals, D: int | None = None, *, send_idx=None,
         send_idx = np.zeros((1, 1, 0), dtype=np.int32)
     send_idx = np.asarray(send_idx).astype(np.int32)
     L = int(send_idx.shape[2])
+    if rowmap is None:
+        rowmap = RowMap.rows(P * R if D is None else int(D), P, P * R)
+    D = rowmap.D if D is None else int(D)
 
     def t(a):
         return torch.tensor(np.asarray(a), device=dev)
 
     ell = DistEll(cols=t(cols.astype(np.int32)), vals=t(vals),
-                  send_idx=t(send_idx), R=R, L=L, P=P,
-                  D=P * R if D is None else int(D),
+                  send_idx=t(send_idx), R=R, L=L, P=P, D=D,
                   n_vc=None if n_vc is None else np.asarray(n_vc),
                   pair_counts=(None if pair_counts is None
                                else np.asarray(pair_counts)),
-                  span=_span(cols, vals, send_idx, R))
+                  span=_span(cols, vals, send_idx, R), rowmap=rowmap)
+    if rowmap.D_pad != P * R:
+        raise ValueError(f"the row map's D_pad={rowmap.D_pad} is not the "
+                         f"operator's {P}·{R}")
     if split is not None:
         ell.cols_loc, ell.vals_loc, ell.cols_halo, ell.vals_halo = (
             t(a) for a in split)

@@ -1,18 +1,38 @@
 """Filter diagonalization driver — paper Algorithm 1, on one device.
 
-The stack layout over ``n_row`` row shards (the horizontal layer; one
-shard by default): orthogonalization (TSQR over the shards, or SVQB),
-Ritz extraction, the adaptive intervals and the Chebyshev filter all run
-on the same stacked ``[D_pad, N_s]`` block, ``D_pad = ⌈D/P⌉·P``, whose
-pad rows stay exactly zero. The shards' collectives run in a
-:class:`~repro_torch.core.shards.ShardGroup` on the one device, and the
-SpMV takes the halo engine that ``spmv_overlap``, ``spmv_comm`` and
-``spmv_schedule`` name (``core/spmv.py``; the compressed split-phase
-engine without the round pipeline). With ``spmv_kernel`` every
-block of every SpMV (Lanczos, the Ritz ``A·V``, the filter's T1) runs
-the CUDA ELL kernel, and every fused filter step the DIA kernel where the
-operator needs no halo and ``ops.plan_dia`` accepts it, else the ELL
-kernel with its fused epilogue.
+The two orthogonal layers of parallelism over an ``n_row × n_col`` grid
+of shards on one device (``core/shards.py::ShardGrid``; the reference's
+``row × col`` mesh, ``repro/core/filter_diag.py``):
+
+* the stack layout over ``P = n_row·n_col`` row shards: orthogonalization
+  (TSQR over the shards, or SVQB), Ritz extraction, the adaptive
+  intervals and Lanczos, on one ``[D_pad, N_s]`` block whose pad rows
+  stay exactly zero;
+* the filter layout, ``cfg.layout`` on the grid (``layouts.py::
+  layout_on_grid``): ``stack`` (``P × 1``), ``panel`` (``n_row × n_col``)
+  or ``pillar`` (``1 × P``). With ``N_col > 1`` each filter pass moves the
+  block to ``[N_col, D_pad, N_s/N_col]`` and back (Alg. 1 steps 7 and 9,
+  ``core/redistribute.py``), and runs the whole Chebyshev filter of each
+  column bundle in bundle order over the panel-level operator's
+  ``N_row`` row shards (the bundles are independent, as the reference's
+  process columns are). A panel with ``N_col = 1`` is the stack layout.
+
+The shards' collectives are device copies between the row blocks
+(``ShardGroup``), and each SpMV takes the halo engine that
+``spmv_overlap``, ``spmv_comm`` and ``spmv_schedule`` name
+(``core/spmv.py``; the compressed split-phase engine without the round
+pipeline), at both levels. With ``spmv_kernel`` every block of every
+SpMV (Lanczos, the Ritz ``A·V``, the filter's T1) runs the CUDA ELL
+kernel, and every fused filter step the DIA kernel where the panel-level
+operator needs no halo (``N_row = 1``, or L = 0) and ``ops.plan_dia``
+accepts it, else the ELL kernel with its fused epilogue.
+
+A planned row map (``spmv_balance="commvol"``, ``spmv_reorder="rcm"``;
+``core/partition.py``) is planned once at ``P`` and shared by both
+operator levels; the search block lives in its position space, Lanczos
+masks its pad positions and :meth:`FilterDiag.gather_global` un-permutes
+the eigenvectors. Only ``plan_mode="exact"`` is ported (``"auto"`` is
+exact below the planner's gate and raises above it).
 
 A complex operator (Exciton, TopIns) solves in complex128 when
 ``cfg.dtype`` is ``"float64"`` and in complex64 when it is ``"float32"``;
@@ -21,8 +41,8 @@ included. The start block and the Lanczos vector are drawn real and cast,
 as the reference draws them (``repro/core/filter_diag.py:337``,
 ``repro/core/lanczos.py:31``).
 
-The other layouts (the vertical layer), the s-step filter and planned row
-partitions are not ported yet: asking for them raises.
+``layout="auto"`` (the χ planner), ``plan_mode="sampled"`` and the s-step
+filter are not ported yet: asking for them raises.
 """
 from __future__ import annotations
 
@@ -35,8 +55,10 @@ import torch
 from . import filters
 from .chebyshev import chebyshev_filter, scale_params
 from .lanczos import lanczos_interval
-from .layouts import stack
+from .layouts import LAYOUTS, layout_on_grid
 from .orthogonalize import make_gram, make_svqb, make_tsqr
+from .partition import PLAN_MODES, SPMV_BALANCES, SPMV_REORDERS, plan_rowmap
+from .redistribute import REDIST_IMPLS, make_redistribute
 from .spmv import (_validate_engine, build_dist_ell, make_fused_cheb_step,
                    make_spmv)
 
@@ -84,7 +106,9 @@ class FDResult:
     #: rows stripped)
     eigenvectors: np.ndarray | None = None
     #: what the shards' collectives moved over the solve: the SpMV engine,
-    #: P, L, and bytes and calls per collective kind (``ShardGroup``)
+    #: the layout, P, L, bytes and calls per collective kind of the stack
+    #: group (the redistributions under "redistribute") and of the panel
+    #: group (``FilterDiag.exchange_summary``)
     exchange: dict | None = None
 
 
@@ -97,7 +121,7 @@ class FDState:
     them.
     """
 
-    V: torch.Tensor | None         # search block [D_pad, N_s]
+    V: torch.Tensor | None         # search block [D_pad, N_s], stack layout
     lam: tuple                     # Lanczos inclusion interval (λ_l, λ_r)
     iteration: int = 0
     total_spmvs: int = 0
@@ -115,90 +139,153 @@ def _not_ported(what: str):
 
 
 def _check_config(cfg: FDConfig) -> None:
-    if cfg.layout != "stack":
-        raise _not_ported(f"layout={cfg.layout!r} (only 'stack', n_col = 1)")
+    if cfg.layout == "auto":
+        raise _not_ported("layout='auto' (the χ-driven planner, "
+                          "repro/core/planner.py)")
+    if cfg.layout not in LAYOUTS:
+        raise ValueError(f"unknown FDConfig.layout {cfg.layout!r} (expected "
+                         "stack | panel | pillar | auto)")
     _validate_engine(cfg.spmv_comm, cfg.spmv_schedule)
     if cfg.spmv_sstep != 1:
         raise _not_ported(f"spmv_sstep={cfg.spmv_sstep}")
-    if (cfg.spmv_balance, cfg.spmv_reorder) != ("rows", "none"):
-        raise _not_ported("a planned (non-identity) row partition")
-    if cfg.ortho not in ("tsqr", "svqb"):
-        raise ValueError(f"unknown ortho {cfg.ortho!r} (expected tsqr | svqb)")
+    for name, value, allowed in (
+            ("redist_impl", cfg.redist_impl, REDIST_IMPLS),
+            ("spmv_balance", cfg.spmv_balance, SPMV_BALANCES),
+            ("spmv_reorder", cfg.spmv_reorder, SPMV_REORDERS),
+            ("plan_mode", cfg.plan_mode, PLAN_MODES),
+            ("ortho", cfg.ortho, ("tsqr", "svqb"))):
+        if value not in allowed:
+            raise ValueError(f"unknown {name} {value!r} (expected one of "
+                             f"{allowed})")
 
 
 class FilterDiag:
-    """Filter diagonalization of ``matrix`` (a MatrixFamily or a CSR) in
-    the stack layout over ``n_row`` row shards on one device.
+    """Filter diagonalization of ``matrix`` (a MatrixFamily or a CSR) on
+    an ``n_row × n_col`` grid of shards on one device, the filter in the
+    layout ``cfg.layout`` names on it.
 
     ``device`` defaults to ``"cuda"``; with no card it raises unless the
-    caller passes ``"cpu"``. TSQR needs ``n_row`` to be a power of two.
+    caller passes ``"cpu"``. TSQR needs ``n_row·n_col`` to be a power of
+    two. ``rowmap`` (a planned :class:`~repro_torch.core.partition.RowMap`
+    at ``P = n_row·n_col``) is used as given; without it one is planned
+    here from ``spmv_balance``/``spmv_reorder`` (rows/none: the identity
+    map, ``RowMap.rows``).
+
+    The stack level is ``ell``, ``spmv`` and ``group`` (``P`` row shards),
+    the filter's level ``ell_panel``, ``spmv_panel`` and ``fused_step``
+    (``N_row`` row shards; the same objects when ``N_col = 1``).
     """
 
-    def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1):
+    def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1,
+                 n_col: int = 1, rowmap=None):
         _check_config(cfg)
         self.cfg = cfg
-        self.layout = stack(int(n_row))
-        self.group = self.layout.shards(device)
-        self.device = self.group.device
-        self.P = self.group.P
+        self.layout = layout_on_grid(cfg.layout, n_row, n_col)
+        self.grid = self.layout.shards(device)
+        self.group = self.grid.stack
+        self.device = self.grid.device
+        self.P = self.grid.P
+        self.N_row, self.N_col = self.layout.n_row, self.layout.n_col
+        if cfg.n_search % self.N_col:
+            raise ValueError(f"n_search={cfg.n_search} is not divisible by "
+                             f"N_col={self.N_col}")
         self.D = matrix.shape[0] if hasattr(matrix, "shape") else matrix.D
-        self.D_pad = -(-self.D // self.P) * self.P
+        # the row map, planned once at P so that both operator levels
+        # share it (``filter_diag.py:176-188`` of the reference); the
+        # equal-rows partition is its identity map (``RowMap.rows``)
+        if rowmap is None:
+            rowmap = plan_rowmap(matrix, self.P, balance=cfg.spmv_balance,
+                                 reorder=cfg.spmv_reorder,
+                                 sstep=cfg.spmv_sstep,
+                                 plan_mode=cfg.plan_mode)
+        self.rowmap = rowmap
+        self.D_pad = rowmap.D_pad
         # the working dtype: cfg.dtype, promoted to complex for a complex
         # operator (spmv.value_dtype)
-        self.ell = build_dist_ell(matrix, self.P, dtype=cfg.dtype,
-                                  d_pad=self.D_pad,
-                                  split_halo=cfg.spmv_overlap,
-                                  device=self.device)
+        build = dict(dtype=cfg.dtype, d_pad=self.D_pad,
+                     split_halo=cfg.spmv_overlap, rowmap=rowmap,
+                     device=self.device)
+        self.ell = build_dist_ell(matrix, self.P, **build)
+        self.ell_panel = (self.ell if self.N_col == 1
+                          else build_dist_ell(matrix, self.N_row, **build))
         self.dtype = self.ell.vals.dtype
         # the compressed split-phase engine contracts the halo block once
         # every round has landed (pipeline=False): with the shards on one
         # card the exchange is a device copy, and each pipelined round's
         # block is one more launch and pass over every row of a shard, the
         # slowest engine on every case measured (PERF.md, engines table)
-        engine = dict(group=self.group, overlap=cfg.spmv_overlap,
+        engine = dict(use_kernel=cfg.spmv_kernel, overlap=cfg.spmv_overlap,
                       comm=cfg.spmv_comm, schedule=cfg.spmv_schedule,
                       pipeline=False)
-        self.spmv = make_spmv(self.ell, use_kernel=cfg.spmv_kernel, **engine)
+        self.spmv = make_spmv(self.ell, group=self.grid.stack, **engine)
         self.engine = self.spmv.kind  # the halo engine, e.g. "a2a-overlap"
-        # kernelized recurrence step: the fused 2a·A·w1 + 2b·w1 - w2 body
-        # (the DIA kernel when the operator has a DIA form and no halo,
-        # else the ELL kernel with its epilogue) of the filter
-        self.fused_step = (make_fused_cheb_step(self.ell, use_kernel=True,
-                                                **engine)
-                           if cfg.spmv_kernel else None)
+        self.spmv_panel = (self.spmv if self.N_col == 1 else
+                           make_spmv(self.ell_panel, group=self.grid.panel,
+                                     **engine))
+        # kernelized recurrence step of the filter, at the panel level:
+        # the fused 2a·A·w1 + 2b·w1 - w2 body (the DIA kernel when the
+        # operator has a DIA form and no halo, else the ELL kernel with
+        # its epilogue)
+        self.fused_step = (
+            make_fused_cheb_step(self.ell_panel, group=self.grid.panel,
+                                 **{**engine, "use_kernel": True})
+            if cfg.spmv_kernel else None)
         if cfg.ortho == "tsqr":
             tsqr = make_tsqr(self.group)  # Q comes back row-major
             self.orthogonalize = lambda V: tsqr(V)[0]
         else:
             self.orthogonalize = make_svqb(self.group)
         self.gram = make_gram(self.group)
+        self.to_panel, self.to_stack = make_redistribute(
+            self.group, self.N_col, cfg.redist_impl)
+        # the map's positions of the rows, and which positions hold one
+        self._pos = torch.as_tensor(rowmap.pos, device=self.device)
+        self._mask = torch.as_tensor(rowmap.valid_mask(), device=self.device)
 
-    def _pad(self, V) -> torch.Tensor:
+    def _place(self, V, row_order: bool) -> torch.Tensor:
         """``V`` ([D, ...] or [D_pad, ...], numpy or tensor) as a row-major
-        [D_pad, ...] tensor of the solver's dtype and device, the pad rows
-        zero (when there are pad rows, a new tensor: the caller's is not
-        touched)."""
+        [D_pad, ...] tensor of the solver's dtype and device in position
+        space, the pad positions zero (a new tensor: the caller's is not
+        touched). A [D, ...] block is in row order and is placed at the
+        map's positions; a [D_pad, ...] block is in position space already
+        and its pads are zeroed. When D equals D_pad, ``row_order`` says
+        which it is."""
         V = torch.as_tensor(np.array(V) if not isinstance(V, torch.Tensor)
                             else V).to(device=self.device, dtype=self.dtype)
-        if V.shape[0] not in (self.D, self.D_pad):
-            raise ValueError(f"block has {V.shape[0]} rows, expected "
-                             f"{self.D} or {self.D_pad}")
-        if self.D_pad == self.D:
-            return V.contiguous()
-        out = V.new_zeros((self.D_pad,) + tuple(V.shape[1:]))
-        out[:self.D] = V[:self.D]
-        return out
+        n = V.shape[0]
+        if n not in (self.D, self.D_pad):
+            raise ValueError(f"block has {n} rows, expected {self.D} or "
+                             f"{self.D_pad}")
+        if n == self.D and (row_order or n != self.D_pad):
+            out = V.new_zeros((self.D_pad,) + tuple(V.shape[1:]))
+            out[self._pos] = V
+            return out
+        mask = self._mask.view((-1,) + (1,) * (V.dim() - 1))
+        return torch.where(mask, V, torch.zeros_like(V))
+
+    def _sync(self) -> None:
+        """Wait for the device (the reference's ``block_until_ready``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def exchange_summary(self) -> dict:
-        """The SpMV engine, P, L and the bytes and calls of each collective
-        kind so far (the group's counters)."""
-        return dict(engine=self.engine, P=self.P, L=self.ell.L,
-                    bytes=dict(self.group.bytes), calls=dict(self.group.calls))
+        """What the shards' collectives moved so far, each level apart:
+        the stack engine's (``bytes``/``calls`` of the stack group, where
+        ``"redistribute"`` holds the stack↔panel redistributions) and,
+        when ``N_col > 1``, the panel engine's (``panel``)."""
+        st, pn = self.grid.stack, self.grid.panel
+        return dict(engine=self.engine, layout=self.layout.describe(),
+                    P=self.P, L=self.ell.L, bytes=dict(st.bytes),
+                    calls=dict(st.calls),
+                    panel=None if pn is st else dict(
+                        P=pn.P, L=self.ell_panel.L, bytes=dict(pn.bytes),
+                        calls=dict(pn.calls)))
 
     def gather_global(self, V) -> np.ndarray:
-        """The rows of a padded [D_pad, ...] block in the original order,
-        [D, ...], on the host (the pad stripped)."""
-        return V[:self.D].cpu().numpy()
+        """The rows of a padded [D_pad, ...] block in the original row
+        order, [D, ...], on the host: the pads stripped and the rows
+        un-permuted (bit-exact)."""
+        return V.index_select(0, self._pos).cpu().numpy()
 
     # ------------------------------------------------------------------
     def ritz(self, V):
@@ -263,25 +350,33 @@ class FilterDiag:
                    generator: torch.Generator | None = None) -> FDState:
         """Fresh :class:`FDState`: Lanczos inclusion interval + search block.
 
-        ``v0`` (Lanczos start vector, D or D_pad entries) and ``V0``
-        (search block [D, N_s] or [D_pad, N_s]) may be given as numpy
-        arrays or tensors — the tests pass the reference's ``jax.random``
-        draws; their pad rows are zeroed. What is not given is drawn from
-        ``generator`` (default: seeded with ``cfg.seed`` on the solver's
-        device), the Lanczos vector first, both [D_pad, ...] with the pad
-        rows zeroed, as the reference draws them.
+        ``v0`` (Lanczos start vector) and ``V0`` (search block [·, N_s])
+        may be given as numpy arrays or tensors: the tests pass the
+        reference's ``jax.random`` draws. As the reference draws them, a
+        ``V0`` of D rows is in row order and ``v0`` of D_pad entries in
+        position space (its pad positions masked); either may also come
+        in the other form (:meth:`_place`). What is not given is drawn
+        from ``generator`` (default: seeded with ``cfg.seed`` on the
+        solver's device), the Lanczos vector first, both in row order
+        ([D, ·]) and then placed, so that a solve starts from the same
+        vectors whatever its layout, shard count or row map.
         """
         cfg = self.cfg
         if generator is None and (V0 is None or v0 is None):
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+        def draw(n_cols):
+            return torch.randn((self.D, n_cols), generator=generator,
+                               dtype=torch.float64, device=self.device)
+
         t0 = time.perf_counter()
+        v = self._place(draw(1) if v0 is None else v0,
+                        row_order=v0 is None).reshape(-1, 1)
         lam = lanczos_interval(self.spmv, self.D, self.dtype, self.device,
-                               v0=v0, generator=generator,
-                               steps=cfg.lanczos_steps, D_pad=self.D_pad)
-        if V0 is None:
-            V0 = torch.randn((self.D_pad, cfg.n_search), generator=generator,
-                             dtype=torch.float64, device=self.device)
-        V = self._pad(V0)
+                               v0=v, steps=cfg.lanczos_steps, D_pad=self.D_pad,
+                               mask=self._mask)
+        V = self._place(draw(cfg.n_search) if V0 is None else V0,
+                        row_order=True)
         return FDState(V=V, lam=lam, total_spmvs=cfg.lanczos_steps,
                        wall_time=time.perf_counter() - t0)
 
@@ -331,6 +426,13 @@ class FilterDiag:
                   f"search=({search[0]:+.4e},{search[1]:+.4e}) "
                   f"best_res={state.history[-1]['best_res']:.2e}")
         if conv.sum() >= cfg.n_target:
+            # the window's pairs still above tol at the stop: the returned
+            # set steps over them (n_conv counts converged pairs anywhere
+            # in the window, as the reference's rule does)
+            late = in_t & ~conv
+            state.history[-1]["unconverged"] = [
+                (float(t), float(r)) for t, r in zip(theta_h[late],
+                                                     res_h[late])]
             order = np.argsort(np.abs(theta_h - cfg.target))
             sel = order[conv[order]][: max(cfg.n_target, int(conv.sum()))]
             state.wall_time += time.perf_counter() - t_begin
@@ -361,21 +463,44 @@ class FilterDiag:
     def step_filter(self, state: FDState,
                     cfg: FDConfig | None = None) -> FDState:
         """Second half of one outer iteration: apply the pending Chebyshev
-        filter and advance the iteration counter."""
+        filter in the filter layout (with ``N_col > 1``: redistribute to
+        the panel block, filter each bundle, redistribute back) and
+        advance the iteration counter."""
         cfg = cfg if cfg is not None else self.cfg
         t_begin = time.perf_counter()
         mu, degree = state.pending
         alpha, beta = scale_params(*state.lam)
         V, state.V = state.V, None
-        state.V = chebyshev_filter(self.spmv, mu, alpha, beta, V,
-                                   fused_step=self.fused_step)
+        Vp = self._redistribute(state, self.to_panel, V)
         del V
+        # each bundle's filter output becomes the bundle
+        bundles = [chebyshev_filter(self.spmv_panel, mu, alpha, beta, Vj,
+                                    fused_step=self.fused_step) for Vj in Vp]
+        del Vp
+        V = self._redistribute(state, self.to_stack, bundles)
+        del bundles
+        state.V = V
         state.total_spmvs += degree * cfg.n_search
         state.history[-1]["degree"] = degree
         state.pending = None
         state.iteration += 1
         state.wall_time += time.perf_counter() - t_begin
         return state
+
+    def _redistribute(self, state: FDState, move, X):
+        """``move(X)`` (``to_panel`` or ``to_stack``); with ``N_col > 1``
+        one redistribution, counted and timed with the device idle at the
+        clock's start, so that ``redist_time`` holds the moves alone, not
+        the filter queued before them."""
+        if self.N_col == 1:
+            return move(X)
+        self._sync()
+        t0 = time.perf_counter()
+        out = move(X)
+        self._sync()
+        state.redistributions += 1
+        state.redist_time += time.perf_counter() - t0
+        return out
 
     def step(self, state: FDState, verbose: bool = False) -> FDState:
         """One full outer iteration (analyze + filter)."""

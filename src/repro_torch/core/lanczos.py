@@ -15,18 +15,21 @@ __all__ = ["lanczos_interval"]
 def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
                      generator: torch.Generator | None = None,
                      steps: int = 30, safety: float = 1.05,
-                     D_pad: int | None = None):
+                     D_pad: int | None = None, mask=None):
     """Return (lambda_l, lambda_r) enclosing spec(A).
 
     ``spmv`` acts on [D_pad, 1] tensors (``D_pad`` defaults to D; the
     stacked block of P row shards pads D to a multiple of P). The pad rows
-    ``[D, D_pad)`` are kept exactly zero, so the padded operator's null
-    modes never enter the Krylov space. The start vector is ``v0`` (numpy
-    or tensor with D or D_pad entries; the pad rows are zeroed) when
-    given; otherwise it is drawn from ``generator`` ([D_pad, 1]), real,
-    and cast to ``dtype`` (complex too), as the reference draws it. The
-    tridiagonal coefficients are accumulated on the host (scalars: one
-    tiny transfer per step).
+    are kept exactly zero, so the padded operator's null modes never enter
+    the Krylov space: the start vector is multiplied by ``mask``, a
+    [D_pad] bool of the positions that hold a row (``RowMap.valid_mask()``;
+    by default the tail ``[D, D_pad)`` is the pad), as the reference does
+    (``repro/core/lanczos.py:31-34``). The start vector is ``v0`` (numpy
+    or tensor, D_pad entries in position space) when given; otherwise it
+    is drawn from ``generator`` ([D_pad, 1]), real, and cast to ``dtype``
+    (complex too), as the reference draws it. The tridiagonal
+    coefficients are accumulated on the host (scalars: one tiny transfer
+    per step).
     """
     D_pad = D if D_pad is None else int(D_pad)
     if v0 is None:
@@ -35,11 +38,13 @@ def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
     else:
         v = torch.as_tensor(np.array(v0) if not isinstance(v0, torch.Tensor)
                             else v0).reshape(-1, 1).to(device=device, dtype=dtype)
-        if v.shape[0] not in (D, D_pad):
-            raise ValueError(f"v0 has {v.shape[0]} entries, expected {D} "
-                             f"or {D_pad}")
-    if D_pad != D:
-        v = torch.cat([v[:D], v.new_zeros((D_pad - D, 1))])
+    mask = (torch.arange(D_pad, device=v.device) < D if mask is None
+            else torch.as_tensor(mask, device=v.device))
+    if v.shape[0] != D_pad or mask.shape != (D_pad,):
+        raise ValueError(f"the start vector and the mask need {D_pad} "
+                         f"entries, got v0 {tuple(v.shape)}, mask "
+                         f"{tuple(mask.shape)}")
+    v = v * mask[:, None].to(v.dtype)
     v = v / torch.linalg.norm(v)
     alphas, betas = [], []
     v_prev = torch.zeros_like(v)

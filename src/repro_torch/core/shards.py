@@ -1,4 +1,6 @@
-"""The horizontal layer's shard group: P row shards on one device.
+"""The shards of one solve on one device: the horizontal layer's shard
+group (P row shards) and the grid of ``N_row × N_col`` shards that the
+vertical layer adds (:class:`ShardGrid`).
 
 The port's counterpart of the mesh's horizontal (``row``) axis and of the
 collectives that ``shard_map`` bodies run over it. A stack-layout block
@@ -23,6 +25,10 @@ kind: the bytes every shard hands to the exchange, summed over shards
 per-device predictions times P. On one card the exchange is a device
 copy, not a network transfer.
 
+The stack↔panel redistribution (``core/redistribute.py``) counts under
+its own kind, ``"redistribute"``, on the stack group: the bytes that the
+reference's tiled ``all_to_all`` along ``col`` sends off-device.
+
 Split-phase engines run an exchange on a side CUDA stream
 (:meth:`ShardGroup.start`) while the local block contracts on the current
 stream, and wait on its event (:meth:`ShardGroup.wait`) before the halo
@@ -39,10 +45,10 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["ShardGroup", "Pending", "COLLECTIVES"]
+__all__ = ["ShardGroup", "ShardGrid", "Pending", "COLLECTIVES"]
 
 #: The collective kinds whose bytes a group counts.
-COLLECTIVES = ("all_to_all", "ppermute", "psum")
+COLLECTIVES = ("all_to_all", "ppermute", "psum", "redistribute")
 
 
 @dataclasses.dataclass
@@ -204,3 +210,34 @@ class ShardGroup:
         if pending.event is not None:
             torch.cuda.current_stream(self.device).wait_event(pending.event)
         return pending.result
+
+
+class ShardGrid:
+    """``n_row × n_col`` shards of one solve on ``device`` (the port's
+    counterpart of the reference's ``row × col`` solver mesh).
+
+    ``stack`` is the group of ``P = n_row·n_col`` row shards of the stack
+    layout (TSQR, Gram, Ritz, Lanczos; stack shard ``b = i·n_col + k``
+    lies inside panel row-block i, the reference's "matching" layouts);
+    ``panel`` the group of ``n_row`` row shards that each column bundle's
+    filter runs over (``stack`` itself when ``n_col = 1``). The
+    redistribution between the two layouts counts on ``stack`` under
+    ``"redistribute"``."""
+
+    def __init__(self, n_row: int, n_col: int = 1, device=None):
+        self.n_row, self.n_col = int(n_row), int(n_col)
+        if self.n_row < 1 or self.n_col < 1:
+            raise ValueError(f"a grid needs n_row, n_col >= 1, got "
+                             f"{n_row}x{n_col}")
+        self.stack = ShardGroup(self.n_row * self.n_col, device)
+        self.device = self.stack.device
+        self.panel = (self.stack if self.n_col == 1
+                      else ShardGroup(self.n_row, self.device))
+
+    @property
+    def P(self) -> int:
+        """All shards, ``n_row·n_col``."""
+        return self.stack.P
+
+    def __repr__(self) -> str:
+        return f"ShardGrid({self.n_row}x{self.n_col}, device={self.device})"

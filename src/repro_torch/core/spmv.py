@@ -4,8 +4,9 @@ Host side (:func:`build_dist_ell`): given a matrix family (or CSR) and the
 number of row shards P, build, as the reference's ``build_dist_ell``
 (``repro/core/spmv.py:534-663``) builds them,
 
-* row blocks of the equal-rows partition, R = ceil(D/P) (the tail block
-  zero-padded to ``D_pad = P·R``);
+* row blocks of a row map (``core/partition.py``): the equal-rows
+  partition, R = ceil(D/P) (the tail block zero-padded to ``D_pad =
+  P·R``), unless a planned map is given;
 * per-shard ELL blocks ``cols/vals [P, R, W]`` with *remapped* columns:
   local columns map to ``[0, R)``, remote ones into the halo region
   ``[R, R + P·L)``, and per row the slots are ordered by remapped column
@@ -20,7 +21,10 @@ number of row shards P, build, as the reference's ``build_dist_ell``
   :func:`neighbor_schedule`, the round-pipelined sub-blocks).
 
 At P = 1 this is the one-shard ELL block of the first slice, with the
-stored entries of each row in ascending column order.
+stored entries of each row in ascending column order. The operator is
+built in the map's position space: shard p owns the rows the map places
+at positions ``[p·R, (p+1)·R)``; on a planned map (commvol cuts, RCM
+order) the split, the neighbour plans and the engines work unchanged.
 
 Device side (:func:`make_spmv`, :func:`make_fused_cheb_step`): the
 reference's ``shard_map`` bodies (``spmv.py:781-1187``) over the port's
@@ -58,9 +62,10 @@ from ..kernels.plan import span_of
 from ..matrices.families import MatrixFamily
 from ..matrices.matfree import collect_row_entries
 from ..matrices.sparse import CSR
+from .partition import RowMap
 from .shards import ShardGroup
 
-__all__ = ["Partition", "DistEll", "NeighborPlan", "build_dist_ell",
+__all__ = ["DistEll", "NeighborPlan", "build_dist_ell",
            "make_spmv", "make_fused_cheb_step", "neighbor_schedule",
            "value_dtype", "SPMV_COMM_ENGINES", "SPMV_SCHEDULES"]
 
@@ -147,37 +152,6 @@ def value_dtype(dtype, is_complex: bool) -> np.dtype:
     return dt
 
 
-@dataclasses.dataclass(frozen=True)
-class Partition:
-    """Equal-block row partition: block p owns rows ``[p·R, min((p+1)·R,
-    D))``, with ``d_pad`` (a multiple of P, ≥ D) the padded extent
-    (default ``ceil(D/P)·P``)."""
-
-    D: int
-    P: int
-    d_pad: int | None = None
-
-    @property
-    def D_pad(self) -> int:
-        if self.d_pad is not None:
-            if self.d_pad % self.P or self.d_pad < self.D:
-                raise ValueError(f"d_pad={self.d_pad} is not a multiple of "
-                                 f"P={self.P} at least D={self.D}")
-            return self.d_pad
-        return (-(-self.D // self.P)) * self.P
-
-    @property
-    def R(self) -> int:
-        return self.D_pad // self.P
-
-    def boundaries(self) -> np.ndarray:
-        return np.minimum(np.arange(self.P + 1, dtype=np.int64) * self.R,
-                          self.D)
-
-    def owner(self, cols: np.ndarray) -> np.ndarray:
-        return np.minimum(cols // self.R, self.P - 1)
-
-
 @dataclasses.dataclass
 class NeighborPlan:
     """Static schedule of the compressed halo exchange (the reference's
@@ -220,9 +194,13 @@ class DistEll:
     ``send_idx`` int32 ``[P, P, L]``; ``n_vc`` (remote columns per shard)
     and ``pair_counts`` (``[P, P]`` true volumes, sender q → receiver p)
     are host arrays. ``span`` is ``max |col − row|`` of the matrix's
-    stored entries in global numbering (the DIA kernel's slab rule reads
-    the same of its plan). The split-phase form and the neighbour plans
-    are built on demand and cached."""
+    stored entries in position numbering (the global one on the
+    equal-rows partition; the DIA kernel's slab rule reads the same of
+    its plan).
+    ``rowmap`` is the row map the operator was built on
+    (``RowMap.rows``, the identity, for the equal-rows partition).
+    The split-phase form and the neighbour plans are built on demand and
+    cached."""
 
     cols: torch.Tensor
     vals: torch.Tensor
@@ -239,6 +217,7 @@ class DistEll:
     cols_halo: torch.Tensor | None = None
     vals_halo: torch.Tensor | None = None
     nbr: dict | None = None
+    rowmap: RowMap | None = None
 
     @property
     def W(self) -> int:
@@ -417,67 +396,79 @@ def build_dist_ell(matrix: MatrixFamily | CSR, P_row: int = 1, dtype=None,
                    d_pad: int | None = None, split_halo: bool = False,
                    rowmap=None, device=None) -> DistEll:
     """Build the per-shard ELL blocks and the halo plan of ``matrix`` for
-    ``P_row`` row shards of the equal-rows partition, in ``dtype`` (the
-    entries' own when None; a real ``dtype`` of a complex operator is
-    promoted by :func:`value_dtype`), on ``device`` (the card unless
-    ``"cpu"`` is given). ``split_halo`` builds the split-phase form now.
-    ``L`` is the true largest pair volume, 0 when no shard needs a remote
-    column. A planned row map (``rowmap``) is not ported yet."""
+    ``P_row`` row shards, in ``dtype`` (the entries' own when None; a
+    real ``dtype`` of a complex operator is promoted by
+    :func:`value_dtype`), on ``device`` (the card unless ``"cpu"`` is
+    given). ``split_halo`` builds the split-phase form now. ``L`` is the
+    true largest pair volume, 0 when no shard needs a remote column.
+
+    The rows are placed by a row map
+    (:class:`~repro_torch.core.partition.RowMap`, planned at any level
+    whose ``D_pad`` ``P_row`` divides; ``RowMap.rows(D, P_row, d_pad)``,
+    the equal-rows partition with ``R = ceil(D/P)`` or ``d_pad / P``, when
+    none is given), as the reference's ``_build_dist_ell_mapped``
+    (``repro/core/spmv.py:666-757``) places them: shard p's ELL row i
+    holds the row the map places at position ``p·R + i`` (pad positions
+    are all-zero rows), local columns are position offsets, and the
+    remote columns of each pair take their halo slots in ascending
+    position order, so every row's slot order (and each engine's
+    accumulation order) follows the mapped layout. On the identity map
+    this is the reference's equal-rows ``build_dist_ell``."""
     device = resolve_device(device)
-    if rowmap is not None:
-        raise NotImplementedError("a planned row map (rowmap) is not ported "
-                                  "yet, see ROADMAP")
-    if isinstance(matrix, CSR):
-        D = matrix.shape[0]
-        get_rows = lambda a, b: matrix.row_entries(
-            np.arange(a, b, dtype=np.int64))
-    else:
-        D = matrix.D
-        get_rows = lambda a, b: collect_row_entries(
-            matrix, np.arange(a, b, dtype=np.int64))
-    part = Partition(D, int(P_row), d_pad)
-    P, R = part.P, part.R
+    P = int(P_row)
+    D = matrix.shape[0] if isinstance(matrix, CSR) else matrix.D
+    if rowmap is None:
+        rowmap = RowMap.rows(D, P, d_pad)
+    elif rowmap.D != D:
+        raise ValueError("rowmap.D does not match the matrix")
+    elif d_pad is not None and d_pad != rowmap.D_pad:
+        raise ValueError(f"d_pad={d_pad} conflicts with the rowmap's "
+                         f"D_pad={rowmap.D_pad}")
+    R = rowmap.level_R(P)
+    pos = rowmap.pos
+    get_rows = (matrix.row_entries if isinstance(matrix, CSR)
+                else lambda rows: collect_row_entries(matrix, rows))
     per_shard = []
     span = 0
     for p in range(P):
-        a, b = min(p * R, D), min((p + 1) * R, D)
-        rows, cols, vals = get_rows(a, b)
+        rows, cols, vals = get_rows(rowmap.shard_rows(p, P)[0])
+        rpos, cpos = pos[rows], pos[cols]
         nz = vals != 0
-        span = max(span, span_of(rows[nz], cols[nz]))
-        per_shard.append((a, b, rows, cols, vals))
+        span = max(span, span_of(rpos[nz], cpos[nz]))
+        per_shard.append((rpos, cpos, vals))
 
-    # remote needs per (receiver p, owner q)
+    # remote needs per (receiver p, owner q), as sorted sender positions
     need: list[dict[int, np.ndarray]] = []
-    for a, b, rows, cols, vals in per_shard:
-        remote = np.unique(cols[(cols < a) | (cols >= b)])
-        owners = part.owner(remote)
+    for p, (_, cpos, _) in enumerate(per_shard):
+        remote = np.unique(cpos[(cpos // R) != p])
+        owners = remote // R
         need.append({int(q): remote[owners == q] for q in np.unique(owners)})
     L = max((len(v) for d in need for v in d.values()), default=0)
 
     pair_counts = np.zeros((P, P), dtype=np.int64)
     send_idx = np.zeros((P, P, L), dtype=np.int32)
     for p, d in enumerate(need):
-        for q, glob in d.items():
-            pair_counts[q, p] = len(glob)
-            send_idx[q, p, :len(glob)] = (glob - q * R).astype(np.int32)
+        for q, spos in d.items():
+            pair_counts[q, p] = len(spos)
+            send_idx[q, p, :len(spos)] = (spos - q * R).astype(np.int32)
 
     # per shard: remapped columns, each row's slots in remapped order
     W = 0
     shard_ell = []
-    for p, (a, b, rows, cols, vals) in enumerate(per_shard):
-        local = (cols >= a) & (cols < b)
-        newcols = np.empty_like(cols)
-        newcols[local] = cols[local] - a
+    for p, (rpos, cpos, vals) in enumerate(per_shard):
+        local = (cpos // R) == p
+        newcols = np.empty(len(cpos), dtype=np.int64)
+        newcols[local] = cpos[local] - p * R
         rem = ~local
         if rem.any():
-            rc = cols[rem]
-            q = part.owner(rc)
+            rc = cpos[rem]
+            q = rc // R
             slot = np.empty(len(rc), dtype=np.int64)
             for qq in np.unique(q):
                 m = q == qq
                 slot[m] = np.searchsorted(need[p][int(qq)], rc[m])
             newcols[rem] = R + q * L + slot
-        rel = rows - a
+        rel = rpos - p * R
         order = np.lexsort((newcols, rel))
         rel, newcols, vals = rel[order], newcols[order], vals[order]
         counts = np.bincount(rel, minlength=R)
@@ -501,7 +492,7 @@ def build_dist_ell(matrix: MatrixFamily | CSR, P_row: int = 1, dtype=None,
                   vals=torch.as_tensor(vals_arr, device=device),
                   send_idx=torch.as_tensor(send_idx, device=device),
                   R=R, L=L, P=P, D=D, n_vc=n_vc, pair_counts=pair_counts,
-                  span=span)
+                  span=span, rowmap=rowmap)
     if split_halo:
         ell.split()
     return ell

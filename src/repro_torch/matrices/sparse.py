@@ -7,7 +7,24 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["CSR", "csr_from_coo", "uniform_partition"]
+__all__ = ["CSR", "csr_from_coo", "uniform_partition",
+           "gather_row_entry_idx"]
+
+
+def gather_row_entry_idx(indptr, rows):
+    """(entry_idx, counts): indices into a CSR's ``indices``/``data``
+    selecting the entries of the (not necessarily contiguous) row set
+    ``rows``, concatenated in the given row order (the port's copy of
+    ``repro/matrices/sparse.py::gather_row_entry_idx``)."""
+    indptr = np.asarray(indptr)
+    rows = np.asarray(rows, dtype=np.int64)
+    counts = np.diff(indptr)[rows]
+    starts = indptr[:-1][rows]
+    total = int(counts.sum())
+    idx = (np.arange(total, dtype=np.int64)
+           - np.repeat(np.cumsum(counts) - counts, counts)
+           + np.repeat(starts, counts))
+    return idx, counts
 
 
 @dataclasses.dataclass
@@ -22,10 +39,7 @@ class CSR:
     def row_entries(self, rows: np.ndarray):
         """(row_idx, col_idx, values) of ``rows``, the families' protocol."""
         rows = np.asarray(rows, dtype=np.int64)
-        counts = np.diff(self.indptr)[rows]
-        idx = (np.arange(int(counts.sum()), dtype=np.int64)
-               - np.repeat(np.cumsum(counts) - counts, counts)
-               + np.repeat(self.indptr[:-1][rows], counts))
+        idx, counts = gather_row_entry_idx(self.indptr, rows)
         return np.repeat(rows, counts), self.indices[idx], self.data[idx]
 
     def to_dense(self) -> np.ndarray:

@@ -448,3 +448,135 @@ def test_row_shard_solve_on_the_card(card):
         assert build.launches["ell_gather_cheb"] > 0
         out.append(np.sort(res.eigenvalues)[-4:])
     np.testing.assert_allclose(out[0], out[1], rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------- the vertical layer (N_col) --
+
+SPLITS_OF_8 = [(8, 1), (4, 2), (2, 4), (1, 8)]
+
+
+@pytest.mark.parametrize("impl", ["explicit", "gspmd"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_redistribution_round_trip_on_the_card(card, impl, dtype):
+    """``to_panel``/``to_stack`` for every split of 8 shards: bundle j is
+    the columns ``[j·n_c, (j+1)·n_c)``, the round trip is bit-exact and
+    each move counts Eqs. 17–18's off-device bytes."""
+    from repro_torch.core import ShardGroup, make_redistribute
+
+    D_pad, N_s = 8 * 1_001, 48
+    g = torch.Generator(device=card).manual_seed(5)
+    V = torch.randn((D_pad, N_s), generator=g, device=card, dtype=dtype)
+    for n_row, n_col in SPLITS_OF_8:
+        grp = ShardGroup(8, card)
+        to_panel, to_stack = make_redistribute(grp, n_col, impl)
+        Vp = to_panel(V)
+        back = to_stack(Vp)
+        torch.cuda.synchronize()
+        assert torch.equal(back, V)
+        n_c = N_s // n_col
+        assert Vp.shape == (n_col, D_pad, n_c)
+        for j in range(n_col):
+            assert Vp[j].is_contiguous()
+            assert torch.equal(Vp[j], V[:, j * n_c:(j + 1) * n_c])
+        S = V.element_size()
+        assert grp.bytes["redistribute"] == 2 * N_s * D_pad * S * (
+            n_col - 1) // n_col
+
+
+@pytest.mark.parametrize("fam,n_row,n_col,route", [
+    (RoadNet(n=4000, w=2, m=256, k=4), 2, 2, "compressed-matching"),
+    (Exciton(L=5), 1, 4, "dia"),
+    (Hubbard(6, 3, U=4.0, ranpot=1.0), 1, 4, "dia"),
+], ids=["roadnet-panel-2x2", "exciton-pillar-1x4", "hubbard-pillar-1x4"])
+def test_panel_and_pillar_steps_equal_the_full_width_step(card, fam, n_row,
+                                                          n_col, route):
+    """One fused step of every bundle of a panel or pillar block,
+    reassembled, equals bit for bit the same step at full width through
+    the N_row-shard engine (at N_row = 1 the one-shard DIA step)."""
+    from repro_torch.core import (ShardGroup, build_dist_ell, layout_on_grid,
+                                  make_fused_cheb_step, make_redistribute)
+
+    P = n_row * n_col
+    ell = build_dist_ell(fam, n_row, dtype="float64",
+                         d_pad=-(-fam.D // P) * P, device=card)
+    kw = dict(use_kernel=True, comm="compressed", schedule="matching")
+    N_s = 32
+    g = torch.Generator(device=card).manual_seed(7)
+    x, w2 = (torch.randn((ell.D_pad, N_s), generator=g, device=card,
+                         dtype=ell.vals.dtype) for _ in range(2))
+    x[ell.D:] = 0
+    w2[ell.D:] = 0
+    want = make_fused_cheb_step(ell, group=ShardGroup(n_row, card), **kw)(
+        x, w2, 0.3, -0.2)
+    name = "pillar" if n_row == 1 else "panel"
+    grid = layout_on_grid(name, n_row, n_col).shards(card)
+    step = make_fused_cheb_step(ell, group=grid.panel, **kw)
+    assert step.kind == route
+    to_panel, to_stack = make_redistribute(grid.stack, n_col)
+    xp, w2p = to_panel(x), to_panel(w2)
+    n0 = dict(build.launches)
+    got = to_stack([step(xj, w2j, 0.3, -0.2) for xj, w2j in zip(xp, w2p)])
+    torch.cuda.synchronize()
+    kernel = "cheb_dia" if route == "dia" else "ell_gather_cheb"
+    assert build.launches[kernel] == n0[kernel] + n_col * n_row
+    assert torch.equal(got, want)
+
+
+def test_layouts_solve_on_the_card(card):
+    """RoadNet(4000) in the panel layout 4 × 2 on the commvol map and in
+    the pillar layout 1 × 4 on the RCM map: each matches dense eigh at the
+    upper edge, with 2 redistributions an iteration and no DIA launch."""
+    mat = RoadNet(n=4000, w=2, m=256, k=4)
+    w = np.linalg.eigvalsh(mat.build_csr().to_dense())
+    for layout, n_row, n_col, plan in (
+            ("panel", 4, 2, dict(spmv_balance="commvol",
+                                 spmv_comm="compressed")),
+            ("pillar", 1, 4, dict(spmv_reorder="rcm"))):
+        build.reset_launches()
+        cfg = FDConfig(n_target=4, n_search=16, target=float(w[-1]) + 0.1,
+                       tol=1e-8, max_iters=40, layout=layout,
+                       spmv_kernel=True, **plan)
+        fd = FilterDiag(mat, cfg, n_row=n_row, n_col=n_col)
+        assert not fd.rowmap.identity
+        res = fd.solve(generator=torch.Generator(device=card).manual_seed(1))
+        assert res.n_converged >= 4
+        assert res.redistributions == 2 * res.iterations
+        np.testing.assert_allclose(np.sort(res.eigenvalues)[-4:], w[-4:],
+                                   atol=1e-7)
+        assert build.launches["cheb_dia"] == 0
+        assert build.launches["ell_gather_cheb"] > 0
+
+
+@pytest.mark.parametrize("fam,dtype", [
+    (Hubbard(8, 4, U=4.0, ranpot=1.0), "float64"),
+    (Exciton(L=8), "complex128"),
+], ids=["hubbard-8-4", "exciton-8"])
+def test_one_outer_iteration_is_deterministic(card, fam, dtype):
+    """One outer iteration (``orthogonalize``, ``ritz`` and a degree-16
+    filter, kernels on) run twice from the same state gives the same
+    bits: the card's dense routines (QR, Gram, ``eigh``, the Ritz
+    products) and the kernels choose nothing run to run."""
+    from repro_torch.core import build_filter, chebyshev_filter, scale_params
+
+    cfg = FDConfig(n_search=64, dtype=dtype, layout="stack",
+                   spmv_kernel=True)
+    fd = FilterDiag(fam, cfg)
+    g = torch.Generator(device=card).manual_seed(11)
+    V0 = torch.randn((fd.D_pad, cfg.n_search), generator=g, device=card,
+                     dtype=torch.float64).to(fd.dtype)
+    lam = fam.spectral_bounds_hint()
+    alpha, beta = scale_params(*lam)
+    poly = build_filter((lam[0], lam[0] + 0.1 * (lam[1] - lam[0])), lam,
+                        degree=16)
+
+    def iteration():
+        Q = fd.orthogonalize(V0)
+        theta, Y, res, VY = fd.ritz(Q)
+        out = chebyshev_filter(fd.spmv, poly.mu, alpha, beta, VY,
+                               fused_step=fd.fused_step)
+        torch.cuda.synchronize()
+        return Q, theta, Y, res, VY, out
+
+    first, second = iteration(), iteration()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

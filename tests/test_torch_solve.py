@@ -134,16 +134,36 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
         FilterDiag(SpinChainXXZ(6, 3), cfg, device="cuda")
 
 
-@pytest.mark.parametrize("change", [
-    dict(layout="panel"), dict(layout="auto"),
-    dict(spmv_comm="compressed", spmv_sstep=2),
-    dict(spmv_sstep=2), dict(spmv_balance="commvol"), dict(spmv_reorder="rcm"),
-    dict(layout="pillar"),
-])
-def test_unported_options_raise(change):
+@pytest.mark.parametrize("change,error,match", [
+    (dict(layout="auto"), NotImplementedError, "not ported yet"),
+    (dict(spmv_comm="compressed", spmv_sstep=2), NotImplementedError,
+     "not ported yet"),
+    (dict(spmv_sstep=2), NotImplementedError, "not ported yet"),
+    (dict(plan_mode="sampled", spmv_balance="commvol"), NotImplementedError,
+     "not ported yet"),
+    (dict(redist_impl="nccl"), ValueError, "unknown redist_impl"),
+], ids=["layout-auto", "compressed-sstep", "sstep", "sampled-commvol",
+        "redist-impl"])
+def test_unported_options_raise(change, error, match):
+    """What is not ported yet raises ``NotImplementedError`` naming
+    ROADMAP; an option value that does not exist raises ``ValueError``."""
     cfg = FDConfig(**{**CASE, **change})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(error, match=match):
         FilterDiag(SpinChainXXZ(6, 3), cfg, device="cpu")
+
+
+def test_default_config_solves_as_stack():
+    """``FDConfig()`` asks for the panel layout (the reference's default);
+    on one shard (``n_col = 1``) that is the stack layout, and it solves:
+    the ten eigenvalues nearest 0 of SpinChainXXZ(10,5), as ``eigh``."""
+    m = SpinChainXXZ(10, 5)
+    fd = FilterDiag(m, FDConfig(), device="cpu")
+    assert fd.layout.describe() == "panel(1x1)" and fd.N_col == 1
+    res = fd.solve()
+    assert res.n_converged >= 10 and res.redistributions == 0
+    w = np.linalg.eigvalsh(m.build_csr().to_dense())
+    for ev in res.eigenvalues:
+        assert np.abs(w - ev).min() < 1e-8
 
 
 def test_complex128_on_a_real_operator_solves_like_the_reference(reference):
@@ -170,3 +190,43 @@ def test_complex128_on_a_real_operator_solves_like_the_reference(reference):
     w = reference["w"]
     for ev in res.eigenvalues:
         assert np.abs(w - ev).min() < 1e-7
+
+
+def test_stop_rule_steps_over_a_late_pair_as_the_reference_does():
+    """FD stops once ``n_target`` Ritz pairs inside the target window have
+    converged (the reference's rule, ``repro/core/filter_diag.py:467``),
+    so a pair of the window that converges later is stepped over. On a
+    diagonal operator with eigenvalues 0, 1, 2, 3, 3.05, 10, 11, … and a
+    search block of unit vectors whose third is off its eigenvector by
+    1e-6, both packages stop at once for n_target = 4 and return 0, 1, 3
+    and 3.05; the port records the pair at 2 as the window's unconverged
+    one."""
+    import jax.numpy as jnp
+
+    from repro.core.filter_diag import FDState as JFDState
+    from repro.matrices.sparse import CSR as JCSR
+    from repro_torch.matrices.sparse import CSR
+
+    D, N_s = 64, 8
+    d = np.concatenate([[0.0, 1.0, 2.0, 3.0, 3.05], 10.0 + np.arange(D - 5)])
+    pattern = (np.arange(D + 1, dtype=np.int64), np.arange(D, dtype=np.int64))
+    V = np.eye(D)[:, :N_s]
+    V[40, 2] = 1e-6
+    lam = (-0.5, float(d[-1]) + 0.5)
+    kw = dict(n_target=4, n_search=N_s, target=-0.1, tol=1e-8,
+              layout="stack")
+    mesh = jax.make_mesh((1, 1), ("row", "col"),
+                         axis_types=(AxisType.Auto,) * 2)
+    with mesh:
+        jfd = JFilterDiag(JCSR(*pattern, d, (D, D)), mesh, JFDConfig(**kw))
+        jstate = jfd.step_analyze(JFDState(V=jnp.asarray(V), lam=lam))
+    fd = FilterDiag(CSR(*pattern, d, (D, D)), FDConfig(**kw), device="cpu")
+    state = fd.step_analyze(convert.fd_state_from_arrays(V, lam,
+                                                         device="cpu"))
+    want = [0.0, 1.0, 3.0, 3.05]
+    for st in (jstate, state):
+        assert st.done and st.result.n_converged == 4
+        np.testing.assert_allclose(np.sort(st.result.eigenvalues), want,
+                                   rtol=0, atol=1e-12)
+    (theta, res), = state.history[-1]["unconverged"]
+    assert abs(theta - 2.0) < 1e-9 and res > kw["tol"]

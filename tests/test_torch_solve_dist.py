@@ -208,8 +208,13 @@ def test_cli_runs_row_shards_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert res.n_converged >= 4
     assert "stack(4x1)" in out and "compressed-cyclic-overlap" in out
-    with pytest.raises(SystemExit):
-        cli.main(argv + ["--n-col", "2"], verbose=False)
+    # a 4 x 2 grid: the stack layout over its 8 row shards, or the panel
+    for layout, shown in (("stack", "stack(8x1)"), ("panel", "panel(4x2)")):
+        res = cli.main(argv + ["--n-col", "2", "--layout", layout],
+                       verbose=False)
+        out = capsys.readouterr().out
+        assert res.n_converged >= 4 and shown in out
+        assert (res.redistributions > 0) == (layout == "panel")
 
 
 def test_unported_shapes_raise():
