@@ -72,24 +72,46 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    bundles to ``N_col · N_row·H·n_c·S``; peak memory. Then one outer
    iteration of the Exciton solve twice from one seeded block, held bit
    for bit, its SHA-256 printed (to compare runs);
-6. solves — ``repro_torch.launch.solve`` in-process, kernels on, each with
+6. plan — the χ-driven planner on the card's own machine model:
+
+   * the fit: ``launch/dryrun.py::fit_machine`` on Hubbard(12,6), fp64,
+     N_s = 512, P = 4 (the layouts phase's operator and splits 4 × 1,
+     2 × 2, 1 × 4; the a2a step, kernels on, at full and tiny width; b_m
+     from a 1 GiB copy), each sample measured beside the fitted model's
+     time; it fails if b_c is not finite or κ ≤ 0. The fit is written
+     beside the ``--out`` record (``chiprun_out/`` without one);
+   * rankings against measurement: ``plan_layout`` with the fit on
+     Hubbard(12,6) (fp64, N_s = 512) and Exciton(L=30) (complex128,
+     N_s = 384) at P = 4 over the three splits, equal rows, kernel axis
+     on; for each split the layouts phase's candidate (compressed
+     matching, no overlap; a2a at 1 × 4) predicted as one card runs it
+     (``P·t_iter`` a step, ``P·t_redist`` a redistribution) beside the
+     layouts phase's measured step and redistributions; each plan's best
+     three and its host seconds;
+   * sampled against exact: HubNet(48000) at P = 8, the exact χ₁, χ₂, χ₃
+     beside ``estimate_comm``'s centre and ``ChiBand`` at the default
+     fraction and at 0.25;
+
+   the ``--layout auto`` solve this fit drives runs among the solves;
+7. solves — ``repro_torch.launch.solve`` in-process, kernels on, each with
    the launch counts set to 0 just before it and read just after, every
    returned pair re-checked on the host against a scipy CSR of the port's
    own generator (‖A·x − θ·x‖ ≤ 1e-8):
 
    * Hubbard(12,6, U=25, ranpot=1) at N_s = 512, fp64, τ just below the
-     spectrum, tol cut to 5e-9; both kernels must launch;
+     spectrum, tol cut to 5e-9 and n_target to 8; both kernels must
+     launch;
    * Exciton(L=30) (the exciton200 config cut to one card) at N_s = 384,
-     complex128, τ just below the spectrum, n_target cut to 16 (its
+     complex128, τ just below the spectrum, n_target cut to 8 (its
      depth: the pillar solve below takes the config's 100); both kernels
      must launch;
    * Exciton(L=30) in the pillar layout 1 × 4 (the exciton200 config's
      production layout, paper Table 4) at N_s = 384, n_target = 100:
      ``cheb_dia`` (the bundles' steps) and ``ell_gather`` must launch, the
      epilogue entry must not; every eigenvalue the stack solve returned
-     (at least 16) equal to one of its own to 1e-9, with multiplicity;
-     those of its lowest 16 that the stack solve stepped over (FD stops
-     once 16 pairs of the window have converged) are printed;
+     (at least 8) equal to one of its own to 1e-9, with multiplicity;
+     those of its lowest 8 that the stack solve stepped over (FD stops
+     once 8 pairs of the window have converged) are printed;
    * RoadNet(48000) (the roadnet48k config's matrix) at N_s = 64,
      n_target = 16, fp64, τ just above the spectrum: no DIA form, so the
      ELL kernel and its epilogue entry must launch and the DIA kernel
@@ -104,6 +126,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      commvol row map (``--spmv-balance commvol``, D_pad = 72,000): the
      ELL kernel and its epilogue entry must launch, the DIA kernel must
      not; its eigenvalues equal to the 8-shard solve's to 1e-9;
+   * the same HubNet solve with ``--layout auto --n-row 8 --plan-mode
+     sampled --machine <the plan phase's fit>``: the planner's report and
+     the split, layout and engine it ran; the ELL kernel and its
+     epilogue entry must launch, the DIA kernel must not; its eigenvalues
+     equal to the 8-shard solve's to 1e-9;
    * the RoadNet solve in the pillar layout 1 × 8 on the RCM row map
      (``--spmv-reorder rcm``): the ELL route with no halo in the filter;
      its eigenvalues equal to the one-shard solve's to 1e-9.
@@ -137,7 +164,9 @@ BITWISE = ("complex128",)  # held bit for bit to the plain version
 HUBBARD = dict(n_sites=12, n_fermions=6, U=25.0, ranpot=1.0)
 SPIN = dict(n_sites=24, n_up=12)
 N_SEARCH = 512
-N_TARGET = 16
+# the Hubbard solve's depth, cut from 16 to 8 to keep the whole run
+# inside its time limit once the plan phase came in (N_s stays 512)
+N_TARGET = 8
 MAX_ITERS = 60  # ~48 needed at the tolerance below (53 at 1e-10)
 # the Hubbard solve's tolerance, cut from 1e-10 to keep the whole run
 # inside its time limit once the vertical layer's solves came in (the
@@ -156,8 +185,9 @@ RN_MAX_ITERS = 400  # ~150 needed at the upper edge
 # the hubnet48k config's matrix and N_s, N_t
 HUBNET = dict(n=48000, w=2, h=5, m=512, k=4)
 HN_N_SEARCH, HN_N_TARGET, HN_MAX_ITERS = 64, 16, 400
-# the Exciton stack solve's depth, cut: the pillar solve takes N_t = 100
-EX_STACK_N_TARGET = 16
+# the Exciton stack solve's depth, cut from 16 to 8 to make room for the
+# plan phase: the pillar solve takes N_t = 100
+EX_STACK_N_TARGET = 8
 # the vertical layer's solves: (n_row, n_col) of their grids
 EX_PILLAR, HN_PANEL, RN_PILLAR = (1, 4), (4, 2), (1, 8)
 # bundle widths n_c = N_s / N_col of those solves, and of the layouts
@@ -1035,6 +1065,98 @@ def determinism_case() -> dict:
     return rec
 
 
+FIT_REPS = 10  # timed steps of each fit sample (after one warm-up)
+
+
+def phase_plan(layouts: dict, fit_path: str) -> dict:
+    """The fit on the card, the rankings it gives beside the layouts
+    phase's measured times, and the sampled χ beside the exact one."""
+    import math
+
+    from repro_torch.core.planner import comm_plan, plan_layout
+    from repro_torch.core.sketch import estimate_comm
+    from repro_torch.launch.dryrun import fit_machine
+    from repro_torch.matrices import Exciton, HubNet, Hubbard
+
+    t0 = time.perf_counter()
+    fit, samples = fit_machine(Hubbard(**HUBBARD), fit_path,
+                               n_devices=LAYOUT_P, n_search=N_SEARCH,
+                               reps=FIT_REPS, device="cuda")
+    rec = dict(fit=dict(name=fit.name, b_m=fit.b_m, b_c=fit.b_c,
+                        kappa=fit.kappa, alpha=fit.alpha, path=fit_path,
+                        seconds=time.perf_counter() - t0),
+               samples=samples, rankings=[], sampled=[])
+    log(f"[plan] fit in {rec['fit']['seconds']:.1f} s: b_m "
+        f"{fit.b_m / 1e9:.1f} GB/s (measured), b_c {fit.b_c / 1e9:.2f} GB/s, "
+        f"kappa {fit.kappa:.4f}, alpha {fit.alpha * 1e6:.2f} us -> {fit_path}")
+    if not math.isfinite(fit.b_c) or fit.kappa <= 0:
+        raise SmokeFailure(f"the fit prices communication as free or the "
+                           f"vectors as free: b_c={fit.b_c}, "
+                           f"kappa={fit.kappa}")
+    measured = {c["case"]: {r["layout"]: r for r in c["rows"]
+                            if r["impl"] == "explicit"}
+                for c in layouts["cases"]}
+    for label, mat, N_s in (("Hubbard", Hubbard(**HUBBARD), N_SEARCH),
+                            ("Exciton", Exciton(**EXCITON), EX_N_SEARCH)):
+        P = LAYOUT_P
+        t0 = time.perf_counter()
+        plan = plan_layout(mat, P, n_search=N_s, machine=fit,
+                           splits=LAYOUT_SPLITS, balance=("rows",),
+                           kernel=(True,), d_pad=-(-mat.D // P) * P)
+        host_s = time.perf_counter() - t0
+        rows = []
+        for n_row, n_col in LAYOUT_SPLITS:
+            comm = "compressed" if n_row > 1 else "a2a"
+            c = next(c for c in plan.candidates
+                     if (c.n_row, c.n_col) == (n_row, n_col)
+                     and c.comm == comm and not c.overlap
+                     and c.schedule == ("matching" if n_row > 1
+                                        else "cyclic"))
+            m = measured[label][f"{c.layout}({n_row}x{n_col})"]
+            row = dict(candidate=c.describe(), step_ms_predicted=P * c.t_iter
+                       * 1e3, redist_ms_predicted=P * c.t_redist * 1e3,
+                       step_ms_measured=m["step_ms"],
+                       redist_ms_measured=(m["to_panel_ms"]
+                                           + m["to_stack_ms"]) / 2)
+            rows.append(row)
+            log(f"[plan] {label} {row['candidate']}: a step predicted "
+                f"{row['step_ms_predicted']:.4f} ms, measured "
+                f"{row['step_ms_measured']:.4f} ms; a redistribution "
+                f"predicted {row['redist_ms_predicted']:.4f} ms, measured "
+                f"{row['redist_ms_measured']:.4f} ms")
+        best = [dict(candidate=c.describe(), t_pass_ms=c.t_pass * 1e3)
+                for c in plan.candidates[:3]]
+        log(f"[plan] {label} best three of {len(plan.candidates)} "
+            f"(planned in {host_s:.3f} s on the host): "
+            + "; ".join(f"{b['candidate']} t_pass {b['t_pass_ms']:.3f} ms"
+                        for b in best))
+        rec["rankings"].append(dict(case=label, P=P, N_s=N_s,
+                                    host_seconds=host_s, best=best,
+                                    rows=rows))
+    mat = HubNet(**HUBNET)
+    t0 = time.perf_counter()
+    exact = comm_plan(mat, 8).chi
+    exact_s = time.perf_counter() - t0
+    for fraction in (None, 0.25):
+        t0 = time.perf_counter()
+        est = estimate_comm(mat, 8, fraction=fraction, seed=0)
+        r = dict(fraction=est.fraction, sampled_rows=est.sampled_rows,
+                 host_seconds=time.perf_counter() - t0,
+                 exact_host_seconds=exact_s,
+                 exact=[exact.chi1, exact.chi2, exact.chi3],
+                 sampled=[est.chi.chi1, est.chi.chi2, est.chi.chi3],
+                 band=[est.band.chi1, est.band.chi2, est.band.chi3],
+                 band_contains_exact=est.band.contains(exact))
+        rec["sampled"].append(r)
+        log(f"[plan] HubNet(48000) P=8 chi1/chi2/chi3: exact "
+            f"{r['exact']} ({exact_s:.3f} s); sampled at fraction "
+            f"{r['fraction']:.4g} ({r['sampled_rows']} rows, "
+            f"{r['host_seconds']:.3f} s) {r['sampled']}, band {r['band']} "
+            f"(level {est.band.level}), contains the exact "
+            f"{r['band_contains_exact']}")
+    return rec
+
+
 def host_operator(fam, params: dict, which: str):
     """The family's scipy CSR and the host eigsh estimate of its lowest
     (``which="SA"``) or highest (``"LA"``) eigenvalue, a Ritz value (so
@@ -1200,7 +1322,7 @@ def grid(n_row_col) -> tuple:
     return ("--n-row", str(n_row_col[0]), "--n-col", str(n_row_col[1]))
 
 
-def phase_solves() -> dict:
+def phase_solves(fit_path: str) -> dict:
     from repro_torch.matrices import Exciton, HubNet, Hubbard, RoadNet
 
     both = dict(ell_gather=True, ell_gather_cheb=False, cheb_dia=True)
@@ -1268,6 +1390,17 @@ def phase_solves() -> dict:
                                  "--spmv-schedule", "matching",
                                  "--spmv-balance", "commvol"))
     agree(out, "hubnet_panel", "hubnet_p8", HN_N_TARGET)
+    # the planner's choice on the card's fitted model (the plan phase)
+    out["hubnet_auto"] = run_solve(
+        "hubnet_auto", "HubNet", HUBNET, A, n_search=HN_N_SEARCH,
+        n_target=HN_N_TARGET, target=lam + 0.1, max_iters=HN_MAX_ITERS,
+        launched=ell_route, layout="auto",
+        engine=("--n-row", "8", "--plan-mode", "sampled", "--machine",
+                fit_path))
+    ran = out["hubnet_auto"]["exchange"]
+    log(f"[solve hubnet_auto] the planner ran {ran['layout']} with the "
+        f"{ran['engine']} engine")
+    agree(out, "hubnet_auto", "hubnet_p8", HN_N_TARGET)
     return out
 
 
@@ -1288,6 +1421,7 @@ def run(args) -> int:
     sys.path.insert(0, SRC)
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1320,7 +1454,14 @@ def run(args) -> int:
     layouts["determinism"] = determinism_case()
     log(f"[layouts] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    solves = phase_solves()
+    out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
+               else os.path.join(ROOT, "chiprun_out"))
+    os.makedirs(out_dir, exist_ok=True)
+    fit_path = os.path.join(out_dir, "machine_fit_h100.json")
+    plan = phase_plan(layouts, fit_path)
+    log(f"[plan] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    solves = phase_solves(fit_path)
     log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
@@ -1346,8 +1487,10 @@ def run(args) -> int:
                                                 nvidia_smi=smi),
                                     build_seconds=build.build_seconds,
                                     checks=records, engines=engines,
-                                    layouts=layouts, solves=solves,
-                                    kernels=line))
+                                    layouts=layouts, plan=plan,
+                                    solves=solves, kernels=line))
+    log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
+        "check to the result")
     log(json.dumps({"kernels": line}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,18 +13,27 @@ same state:
   ``balance``, ``reorder``, ``sstep``);
 * a ``DiaPlan``'s ``offsets/dvals`` (``[1, n_diag, R]`` or
   ``[n_diag, R]``);
-* an ``FDState``'s search block ``V`` and interval ``lam``.
+* an ``FDState``'s search block ``V`` and interval ``lam``;
+* the planner's host values, as plain fields (numpy arrays, floats,
+  strings): a ``MachineModel``, an ``SpmvCommPlan``, a
+  ``SampledCommEstimate`` (with its ``ChiMetrics`` and ``ChiBand``) and a
+  ``Plan`` with its candidates, each with the row map it holds.
 
-Each function puts its tensors on ``device``: the card unless ``"cpu"``
-is given.
+Each function that makes tensors puts them on ``device``: the card unless
+``"cpu"`` is given. The planner's converters take the reference's
+objects and read their fields.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core import perf_model as pm
 from .core.filter_diag import FDState
+from .core.metrics import ChiMetrics
 from .core.partition import RowMap
+from .core.planner import Candidate, Plan, SpmvCommPlan
+from .core.sketch import ChiBand, SampledCommEstimate
 from .core.spmv import DistEll, NeighborPlan
 from .device import resolve_device
 from .kernels.ops import DiaPlan
@@ -160,3 +169,101 @@ def fd_state_from_arrays(V, lam, *, iteration: int = 0, total_spmvs: int = 0,
     return FDState(V=torch.tensor(V, device=resolve_device(device)),
                    lam=(float(lam[0]), float(lam[1])),
                    iteration=iteration, total_spmvs=total_spmvs)
+
+
+# --------------------------------------------------------------------------
+# the planner's host values
+# --------------------------------------------------------------------------
+
+
+def _rowmap_of(rm) -> RowMap | None:
+    """A reference ``RowMap`` as the port's; None stays None."""
+    if rm is None:
+        return None
+    return rowmap_from_arrays(rm.D, rm.P, rm.perm, rm.boundaries, rm.R,
+                              balance=rm.balance, reorder=rm.reorder,
+                              sstep=rm.sstep)
+
+
+def _opt_array(a, dtype=np.int64):
+    return None if a is None else np.asarray(a, dtype=dtype).copy()
+
+
+def machine_from_fields(m) -> pm.MachineModel:
+    """The port's :class:`~repro_torch.core.perf_model.MachineModel` from
+    a reference ``MachineModel``'s ``name``, ``b_m``, ``b_c``, ``kappa``
+    and ``alpha``."""
+    return pm.MachineModel(name=str(m.name), b_m=float(m.b_m),
+                           b_c=float(m.b_c), kappa=float(m.kappa),
+                           alpha=float(m.alpha))
+
+
+def comm_plan_from_fields(cp) -> SpmvCommPlan:
+    """The port's :class:`~repro_torch.core.planner.SpmvCommPlan` from a
+    reference one (an s = 1 plan: the ghost-zone fields of the s-step
+    filter are not ported)."""
+    if int(cp.sstep) != 1:
+        raise ValueError("an s-step comm plan (sstep > 1) has no port "
+                         "counterpart yet")
+    return SpmvCommPlan(
+        n_row=int(cp.n_row), D=int(cp.D), L=int(cp.L),
+        n_vc=_opt_array(cp.n_vc), exact=bool(cp.exact),
+        d_pad=None if cp.d_pad is None else int(cp.d_pad),
+        pair_counts=_opt_array(cp.pair_counts),
+        rowmap=_rowmap_of(cp.rowmap))
+
+
+def _chi_of(c) -> ChiMetrics:
+    return ChiMetrics(N_p=int(c.N_p), D=int(c.D), chi1=float(c.chi1),
+                      chi2=float(c.chi2), chi3=float(c.chi3),
+                      n_vc=_opt_array(c.n_vc), n_vm=_opt_array(c.n_vm))
+
+
+def _band_of(b) -> ChiBand:
+    return ChiBand(level=float(b.level),
+                   **{k: tuple(float(v) for v in getattr(b, k))
+                      for k in ("chi1", "chi2", "chi3")})
+
+
+def sampled_estimate_from_fields(est) -> SampledCommEstimate:
+    """The port's :class:`~repro_torch.core.sketch.SampledCommEstimate`
+    from a reference one: its counts, its χ metrics (``ChiMetrics``) and
+    confidence band (``ChiBand``) as their fields."""
+    return SampledCommEstimate(
+        n_row=int(est.n_row), D=int(est.D), fraction=float(est.fraction),
+        seed=int(est.seed), sampled_rows=int(est.sampled_rows),
+        pair_counts=_opt_array(est.pair_counts), n_vc=_opt_array(est.n_vc),
+        n_vm=_opt_array(est.n_vm), chi=_chi_of(est.chi),
+        band=_band_of(est.band),
+        d_pad=None if est.d_pad is None else int(est.d_pad),
+        rowmap=_rowmap_of(est.rowmap))
+
+
+_CANDIDATE_FIELDS = ("layout", "n_row", "n_col", "overlap", "comm",
+                     "schedule", "redistribute", "chi1", "chi2", "chi_eng",
+                     "t_iter", "t_redist", "t_pass", "comm_bytes_per_device",
+                     "balance", "reorder", "kernel", "sstep")
+
+
+def candidate_from_fields(c) -> Candidate:
+    """The port's :class:`~repro_torch.core.planner.Candidate` from a
+    reference one (its scalar fields and its row map)."""
+    kinds = dict(n_row=int, n_col=int, overlap=bool, redistribute=bool,
+                 chi1=float, chi2=float, chi_eng=float, t_iter=float,
+                 t_redist=float, t_pass=float, comm_bytes_per_device=int,
+                 kernel=bool, sstep=int)
+    return Candidate(**{k: kinds.get(k, str)(getattr(c, k))
+                        for k in _CANDIDATE_FIELDS},
+                     rowmap=_rowmap_of(c.rowmap))
+
+
+def plan_from_fields(plan) -> Plan:
+    """The port's :class:`~repro_torch.core.planner.Plan` from a reference
+    one, its candidates in the reference's order."""
+    return Plan(matrix=str(plan.matrix), D=int(plan.D),
+                n_devices=int(plan.n_devices),
+                n_search=int(plan.n_search),
+                degree=int(plan.degree),
+                machine=str(plan.machine),
+                candidates=tuple(candidate_from_fields(c)
+                                 for c in plan.candidates))

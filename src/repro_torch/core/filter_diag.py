@@ -31,8 +31,18 @@ A planned row map (``spmv_balance="commvol"``, ``spmv_reorder="rcm"``;
 ``core/partition.py``) is planned once at ``P`` and shared by both
 operator levels; the search block lives in its position space, Lanczos
 masks its pad positions and :meth:`FilterDiag.gather_global` un-permutes
-the eigenvectors. Only ``plan_mode="exact"`` is ported (``"auto"`` is
-exact below the planner's gate and raises above it).
+the eigenvectors. ``plan_mode`` picks the exact pattern pass or the
+sampled one (``core/sketch.py``; ``"auto"``: exact below the planner's
+gate, sampled above it).
+
+``layout="auto"`` hands the choice to the χ-driven planner
+(``core/planner.py::plan_on_grid``, the reference's ``_resolve_layout``):
+it ranks stack ``P × 1``, panel ``n_row × n_col`` and pillar ``1 × P``
+with every halo engine and row partition, and the solver runs the best
+candidate on a copy of the config (``self.plan``, ``self.cfg``). The
+kernel axis stays at ``cfg.spmv_kernel``: on a model whose κ is at most
+5 a kernel candidate ties with its plain twin, and the tiebreak would
+run the plain versions.
 
 A complex operator (Exciton, TopIns) solves in complex128 when
 ``cfg.dtype`` is ``"float64"`` and in complex64 when it is ``"float32"``;
@@ -41,8 +51,8 @@ included. The start block and the Lanczos vector are drawn real and cast,
 as the reference draws them (``repro/core/filter_diag.py:337``,
 ``repro/core/lanczos.py:31``).
 
-``layout="auto"`` (the χ planner), ``plan_mode="sampled"`` and the s-step
-filter are not ported yet: asking for them raises.
+The s-step filter (``spmv_sstep > 1``) is not ported yet: asking for it
+raises.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ from .lanczos import lanczos_interval
 from .layouts import LAYOUTS, layout_on_grid
 from .orthogonalize import make_gram, make_svqb, make_tsqr
 from .partition import PLAN_MODES, SPMV_BALANCES, SPMV_REORDERS, plan_rowmap
+from .planner import _not_ported, auto_axes, config_for, plan_on_grid
 from .redistribute import REDIST_IMPLS, make_redistribute
 from .spmv import (_validate_engine, build_dist_ell, make_fused_cheb_step,
                    make_spmv)
@@ -134,15 +145,8 @@ class FDState:
     result: FDResult | None = None
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet, see ROADMAP")
-
-
 def _check_config(cfg: FDConfig) -> None:
-    if cfg.layout == "auto":
-        raise _not_ported("layout='auto' (the χ-driven planner, "
-                          "repro/core/planner.py)")
-    if cfg.layout not in LAYOUTS:
+    if cfg.layout not in LAYOUTS + ("auto",):
         raise ValueError(f"unknown FDConfig.layout {cfg.layout!r} (expected "
                          "stack | panel | pillar | auto)")
     _validate_engine(cfg.spmv_comm, cfg.spmv_schedule)
@@ -169,7 +173,12 @@ class FilterDiag:
     two. ``rowmap`` (a planned :class:`~repro_torch.core.partition.RowMap`
     at ``P = n_row·n_col``) is used as given; without it one is planned
     here from ``spmv_balance``/``spmv_reorder`` (rows/none: the identity
-    map, ``RowMap.rows``).
+    map, ``RowMap.rows``). With ``cfg.layout == "auto"`` the planner picks
+    the layout on the grid and the engine and row-map fields of a copy of
+    ``cfg`` (``plan_on_grid`` with ``plan_layout``'s default machine,
+    the H100 model),
+    and the solver is built from the winner (``self.plan.best``; its row
+    map unless one is given).
 
     The stack level is ``ell``, ``spmv`` and ``group`` (``P`` row shards),
     the filter's level ``ell_panel``, ``spmv_panel`` and ``fused_step``
@@ -179,6 +188,10 @@ class FilterDiag:
     def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1,
                  n_col: int = 1, rowmap=None):
         _check_config(cfg)
+        self.plan = None
+        if cfg.layout == "auto":
+            cfg, rowmap = self._resolve_layout(matrix, cfg, n_row, n_col,
+                                               rowmap)
         self.cfg = cfg
         self.layout = layout_on_grid(cfg.layout, n_row, n_col)
         self.grid = self.layout.shards(device)
@@ -241,6 +254,20 @@ class FilterDiag:
         # the map's positions of the rows, and which positions hold one
         self._pos = torch.as_tensor(rowmap.pos, device=self.device)
         self._mask = torch.as_tensor(rowmap.valid_mask(), device=self.device)
+
+    def _resolve_layout(self, matrix, cfg: FDConfig, n_row: int, n_col: int,
+                        rowmap):
+        """``layout="auto"``: rank the layouts of the grid
+        (``plan_on_grid`` on the axes of ``planner.auto_axes``) and return
+        a copy of ``cfg`` set to the winner, with the row map it was
+        scored on (``rowmap`` when one is given), as the reference's
+        ``_resolve_layout`` does (``repro/core/filter_diag.py:212-250``)."""
+        D = matrix.shape[0] if hasattr(matrix, "shape") else matrix.D
+        self.plan = plan_on_grid(matrix, n_row, n_col,
+                                 **auto_axes(cfg, D, int(n_row) * int(n_col)))
+        best = self.plan.best
+        return (config_for(cfg, best),
+                rowmap if rowmap is not None else best.rowmap)
 
     def _place(self, V, row_order: bool) -> torch.Tensor:
         """``V`` ([D, ...] or [D_pad, ...], numpy or tensor) as a row-major

@@ -22,9 +22,9 @@ stack↔panel redistribution never notice the map, and any level
 stack- and panel-level operators of one solve share one map. Pad
 positions hold exact zeros everywhere (``lanczos_interval`` masks them).
 
-``plan_mode="sampled"`` (the reference's ``core/sketch.py``) is not
-ported yet: asking for it raises ``NotImplementedError``, and ``"auto"``
-raises above the exact planner's gate instead of sampling.
+``plan_mode="sampled"`` plans the commvol cuts from a seeded row
+subsample instead (``core/sketch.py::coarsened_commvol_boundaries``), and
+``"auto"`` samples above the exact planner's gate.
 """
 from __future__ import annotations
 
@@ -47,9 +47,8 @@ SPMV_REORDERS = ("none", "rcm")
 
 #: Planning modes (``FDConfig.plan_mode`` / ``--plan-mode``): ``exact``
 #: walks the full pattern (gated by :func:`partition_plan_default`),
-#: ``sampled`` estimates from a seeded row subsample in the reference
-#: (``repro/core/sketch.py``; not ported yet: it raises), ``auto`` =
-#: exact below the gate, sampled above it.
+#: ``sampled`` estimates from a seeded row subsample (``core/sketch.py``),
+#: ``auto`` = exact below the gate, sampled above it.
 PLAN_MODES = ("exact", "sampled", "auto")
 
 #: Largest D for which the partition planner's full pattern pass
@@ -73,8 +72,7 @@ def partition_plan_default(matrix, P: int | None = None,
     *all* rows, so instance size matters; the cut descent additionally
     scales with the shard count. ``plan_mode="sampled"`` (and ``"auto"``,
     which falls back to sampling above the gate) plans from a row
-    subsample and is affordable at any size (in the reference; the port
-    raises for it, :func:`plan_rowmap`)."""
+    subsample and is affordable at any size."""
     if plan_mode not in PLAN_MODES:
         raise ValueError(f"unknown plan_mode {plan_mode!r} "
                          f"(expected one of {PLAN_MODES})")
@@ -614,8 +612,9 @@ def plan_rowmap(matrix, P: int, *, balance: str = "rows",
                 block_multiple: int = 1, alpha: float = 1.0,
                 beta: float = 4.0, sweeps: int = 3,
                 growth: float = 1.5, refine_passes: int = 3,
-                pattern=None, sstep: int = 1,
-                plan_mode: str = "exact") -> RowMap:
+                pattern=None, sstep: int = 1, plan_mode: str = "exact",
+                sample_seed: int = 0,
+                sample_fraction: float | None = None) -> RowMap:
     """Plan the row decomposition of ``matrix`` at ``P`` shards.
 
     ``balance`` ∈ :data:`SPMV_BALANCES` picks the block cuts (equal rows
@@ -635,10 +634,12 @@ def plan_rowmap(matrix, P: int, *, balance: str = "rows",
     depth, rather than silently under-counting).
 
     ``plan_mode`` ∈ :data:`PLAN_MODES` selects the exact full-pattern
-    pass or the sampled one; ``auto`` resolves via
-    :func:`partition_plan_default`. The sampled planner is not ported
-    yet: a planned map that would take it (``"sampled"``, or ``"auto"``
-    above the gate) raises ``NotImplementedError``.
+    pass or the sampled one (``core/sketch.py``:
+    ``coarsened_commvol_boundaries`` driven by ``sample_seed`` /
+    ``sample_fraction``); ``auto`` resolves via
+    :func:`partition_plan_default`. The sampled path supports
+    ``balance`` only — ``reorder="rcm"`` needs the full adjacency and
+    raises.
 
     Deterministic: same matrix, same arguments → the same map.
     """
@@ -665,11 +666,23 @@ def plan_rowmap(matrix, P: int, *, balance: str = "rows",
         rm.sstep = int(sstep)
         return rm
     if plan_mode == "sampled":
-        raise NotImplementedError(
-            "plan_mode='sampled' (the sampled partition planner, "
-            "repro/core/sketch.py) is not ported yet, see ROADMAP; the "
-            f"exact planner takes D <= {PARTITION_PLAN_MAX_D} and P <= "
-            f"{PARTITION_PLAN_MAX_P} (here D = {D}, P = {P})")
+        if reorder != "none":
+            raise ValueError(
+                f"plan_mode='sampled' cannot plan reorder={reorder!r} — "
+                f"the RCM pass needs the full adjacency; use "
+                f"plan_mode='exact' below the gate or reorder='none'")
+        from .sketch import coarsened_commvol_boundaries  # lazy: no cycle
+
+        boundaries = coarsened_commvol_boundaries(
+            matrix, P, alpha=alpha, beta=beta, fraction=sample_fraction,
+            seed=sample_seed, sweeps=sweeps, growth=growth,
+            refine_passes=refine_passes)
+        R = max(int(np.diff(boundaries).max()) if P else 0, 1)
+        R = -(-R // block_multiple) * block_multiple
+        return RowMap(D=D, P=P, balance=balance, reorder=reorder,
+                      perm=np.arange(D, dtype=np.int64),
+                      boundaries=np.asarray(boundaries, dtype=np.int64),
+                      R=R, sstep=int(sstep))
     if pattern is None:
         pattern = _pattern_csr(matrix)
     perm = (rcm_permutation(matrix, pattern=pattern) if reorder == "rcm"

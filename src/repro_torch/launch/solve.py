@@ -19,8 +19,20 @@ run over all ``n_row·n_col`` row shards, and the filter in the
 ``--layout`` on the grid (``stack``: ``P × 1``; ``panel``: ``n_row ×
 n_col``; ``pillar``: ``1 × P``), the block redistributed there and back
 every filter pass (``--redist-impl``). ``--spmv-balance commvol`` and
-``--spmv-reorder rcm`` plan the row map (``--plan-mode exact``).
-``--layout auto`` and ``--plan-mode sampled`` are not ported yet.
+``--spmv-reorder rcm`` plan the row map (``--plan-mode exact`` walks the
+whole pattern, ``sampled`` plans from a seeded row subsample, ``auto``
+samples above the exact planner's gate).
+
+``--layout auto`` hands the choice to the χ-driven planner
+(``core/planner.py``): over every ``n_row × n_col`` split of ``P =
+--n-row · --n-col`` shards it ranks the layouts, the halo engines
+(``a2a``, compressed ``cyclic``/``matching``, each with and without
+overlap) and the row partitions (equal rows, ``commvol``; an explicit
+``--spmv-reorder rcm`` adds RCM) with the analytic model of
+``--machine`` (a builtin name or a JSON written by ``python -m
+repro_torch.launch.dryrun --fit-machine PATH``; default ``h100-1card``),
+prints the ranking and runs the best candidate on its split and row map.
+``--spmv-kernel`` stays as given.
 
 Every family of ``repro_torch.matrices`` is taken: Hubbard, SpinChainXXZ,
 Exciton and TopIns (complex; the fused step runs the DIA kernel where the
@@ -40,6 +52,8 @@ import time
 import numpy as np
 
 from ..core import FDConfig, FilterDiag
+from ..core import perf_model as pm
+from ..core.planner import auto_axes, config_for, plan_layout
 from ..kernels import build
 from ..matrices import available_families, get_family
 
@@ -79,7 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["stack", "panel", "pillar", "auto"],
                     help="filter-phase vector layout on the grid: stack "
                          "(P x 1), panel (n_row x n_col) or pillar (1 x P); "
-                         "'auto' (the planner) is not ported yet")
+                         "'auto': the chi-driven planner picks the split of "
+                         "P = n_row*n_col, the layout, the halo engine and "
+                         "the row partition (overrides --n-row/--n-col, "
+                         "--spmv-overlap/-comm/-schedule/-balance)")
     ap.add_argument("--redist-impl", default="explicit",
                     choices=["explicit", "gspmd"],
                     help="stack<->panel redistribution: tile by tile as "
@@ -90,11 +107,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "the halo volume")
     ap.add_argument("--spmv-reorder", default="none", choices=["none", "rcm"],
                     help="row order: as given, or reverse Cuthill-McKee")
-    ap.add_argument("--plan-mode", default="exact",
-                    choices=["exact", "auto", "sampled"],
-                    help="how a row map is planned: 'exact' (the full "
-                         "pattern), 'auto' (exact below the planner's "
-                         "gate); 'sampled' is not ported yet")
+    ap.add_argument("--plan-mode", default="auto",
+                    choices=["exact", "sampled", "auto"],
+                    help="pattern passes of the planning (row maps, chi "
+                         "counts, comm plans): 'exact' (the full pattern), "
+                         "'sampled' (a seeded row subsample: "
+                         "Horvitz-Thompson chi/L estimates and a coarsened "
+                         "commvol descent) or 'auto' (exact below the "
+                         "planner's gate, sampled above it)")
+    ap.add_argument("--machine", default=pm.H100_1CARD.name,
+                    help="machine model for --layout auto: a builtin "
+                         f"({', '.join(sorted(pm.BUILTIN_MACHINES))}) or a "
+                         "JSON path written by `python -m "
+                         "repro_torch.launch.dryrun --fit-machine PATH`")
     ap.add_argument("--spmv-overlap", action="store_true",
                     help="split-phase SpMV engine: the halo exchange runs "
                          "on a side stream while the local block "
@@ -139,21 +164,41 @@ def config_from_args(args) -> FDConfig:
                     ortho=args.ortho)
 
 
+def plan_auto(mat, fd: FDConfig, P: int, machine):
+    """``--layout auto``: rank every split of ``P`` shards
+    (``plan_layout`` on the axes of ``planner.auto_axes``, as the
+    reference CLI plans over its devices, ``repro/launch/solve.py:70-112``)
+    and return ``(fd', n_row, n_col, rowmap)`` for the best candidate."""
+    t0 = time.perf_counter()
+    plan = plan_layout(mat, P, machine=machine, **auto_axes(fd, mat.D, P))
+    seconds = time.perf_counter() - t0
+    best = plan.best
+    print(plan.report())
+    print(f"[auto] planned in {seconds:.3f} s on the host; running "
+          f"{best.describe()} (spmv_overlap={best.overlap}, "
+          f"spmv_comm={best.comm}, spmv_schedule={best.schedule}, "
+          f"spmv_balance={best.balance}, spmv_reorder={best.reorder}, "
+          f"spmv_kernel={best.kernel}, spmv_sstep={best.sstep})")
+    return config_for(fd, best), best.n_row, best.n_col, best.rowmap
+
+
 def main(argv=None, verbose: bool = True):
     """Parse ``argv``, solve, print the summary; returns the FDResult."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.layout == "auto":
-        ap.error("--layout auto (the layout planner) is not ported yet, "
-                 "see ROADMAP")
-    if args.plan_mode == "sampled":
-        ap.error("--plan-mode sampled (the sampled partition planner) is "
-                 "not ported yet, see ROADMAP")
     fd = config_from_args(args)
     mat = get_family(args.family, **parse_params(args.params))
+    n_row, n_col, rowmap = args.n_row, args.n_col, None
+    if args.layout == "auto":
+        try:
+            machine = pm.resolve_machine(args.machine)
+        except ValueError as e:
+            ap.error(str(e))
+        fd, n_row, n_col, rowmap = plan_auto(mat, fd, n_row * n_col,
+                                             machine)
     t0 = time.perf_counter()
-    solver = FilterDiag(mat, fd, device=args.device, n_row=args.n_row,
-                        n_col=args.n_col)
+    solver = FilterDiag(mat, fd, device=args.device, n_row=n_row,
+                        n_col=n_col, rowmap=rowmap)
     res = solver.solve(verbose=verbose)
     wall = time.perf_counter() - t0
     print(f"converged {res.n_converged} eigenpairs in {res.iterations} "

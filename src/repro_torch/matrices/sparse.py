@@ -36,6 +36,15 @@ class CSR:
     data: np.ndarray | None  # float64/complex128 or None
     shape: tuple[int, int]
 
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
+    @property
+    def n_nzr(self) -> float:
+        """Average stored entries per row (the planner's ``n_nzr``)."""
+        return self.nnz / self.shape[0]
+
     def row_entries(self, rows: np.ndarray):
         """(row_idx, col_idx, values) of ``rows``, the families' protocol."""
         rows = np.asarray(rows, dtype=np.int64)

@@ -580,3 +580,53 @@ def test_one_outer_iteration_is_deterministic(card, fam, dtype):
     first, second = iteration(), iteration()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_fit_machine_prices_the_exchange(card):
+    """``fit_machine`` on the card (Hubbard(11,5), D = 213,444, fp64,
+    P = 4, N_s = 512): b_m from the 1 GiB copy, a finite b_c and κ > 0 —
+    a model that prices both the exchange and the vectors. (Smaller
+    operators are launch-bound: the exchange barely shows in their
+    times, and the fit may leave b_c at +inf.)"""
+    import math
+
+    from repro_torch.launch.dryrun import fit_machine
+
+    fit, samples = fit_machine(Hubbard(11, 5, U=4.0, ranpot=1.0), None,
+                               n_devices=4, n_search=512, reps=5,
+                               device=card, verbose=False)
+    assert len(samples) == 5  # 4x1 and 2x2 at two widths, 1x4 at one
+    assert all(s["t"] > 0 and s["t_model"] > 0 for s in samples)
+    assert 1e11 < fit.b_m < 1e13
+    assert math.isfinite(fit.b_c) and fit.b_c > 0
+    assert fit.kappa > 0 and fit.alpha >= 0
+
+
+def test_auto_solve_on_the_card_equals_the_cpu(card):
+    """``layout="auto"`` on a 4 × 1 grid of HubNet(4000), kernels on: the
+    card plans as the CPU does, runs the ELL kernel and its epilogue
+    (never the DIA kernel: HubNet has no DIA form), and from the same
+    draws returns the CPU's eigenvalues to 1e-9."""
+    from repro_torch.matrices import HubNet
+
+    mat = HubNet(n=4000, w=2, h=4, m=192, k=4)
+    rng = np.random.default_rng(5)
+    v0 = rng.standard_normal((mat.D, 1))
+    V0 = rng.standard_normal((mat.D, 16))
+    cfg = FDConfig(n_target=4, n_search=16, target=17.0, tol=1e-8,
+                   max_iters=8, layout="auto", spmv_kernel=True)
+    out = {}
+    for dev in ("cpu", card):
+        build.reset_launches()
+        fd = FilterDiag(mat, cfg, device=dev, n_row=4)
+        res = fd.solve(v0=v0, V0=V0)
+        out[str(dev)] = (fd.plan.best.describe(), res,
+                         dict(build.launches))
+    (best_cpu, res_cpu, _), (best, res, launches) = out["cpu"], out["cuda"]
+    assert best == best_cpu and best.endswith(")") and "+krn" in best
+    assert res.iterations == res_cpu.iterations
+    np.testing.assert_allclose(np.sort(res.eigenvalues),
+                               np.sort(res_cpu.eigenvalues), rtol=0,
+                               atol=1e-9)
+    assert launches["ell_gather"] > 0 and launches["ell_gather_cheb"] > 0
+    assert launches["cheb_dia"] == 0

@@ -282,15 +282,24 @@ def test_identity_map_is_the_equal_rows_operator():
         build_dist_ell(m, 4, rowmap=rm, d_pad=260, device="cpu")
 
 
-def test_sampled_planning_is_not_ported():
-    """``plan_mode="sampled"``, and ``"auto"`` above the exact planner's
-    gate, raise; ``"auto"`` below it is the exact plan."""
-    m = _family("roadnet")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        plan_rowmap(m, 8, balance="commvol", plan_mode="sampled")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        plan_rowmap(m, 2 * PARTITION_PLAN_MAX_P, balance="commvol",
-                    plan_mode="auto")
+def test_sampled_planning_plans_the_references_map():
+    """``plan_mode="sampled"`` plans the reference's sampled commvol map
+    (``core/sketch.py``); ``"auto"`` samples above the exact planner's
+    gate and is the exact plan below it."""
+    from repro.core.partition import plan_rowmap as ref_plan_rowmap
+    from repro.matrices import get_family as ref_family
+
+    fam, params = MATS["roadnet"]
+    m, ref_m = _family("roadnet"), ref_family(fam, **params)
+    for P, mode in ((8, "sampled"), (2 * PARTITION_PLAN_MAX_P, "auto")):
+        mine = plan_rowmap(m, P, balance="commvol", plan_mode=mode)
+        want = ref_plan_rowmap(ref_m, P, balance="commvol", plan_mode=mode)
+        assert np.array_equal(mine.boundaries, want.boundaries)
+        assert mine.R == want.R and mine.is_bijection()
+    assert np.array_equal(
+        mine.boundaries, plan_rowmap(m, 2 * PARTITION_PLAN_MAX_P,
+                                     balance="commvol",
+                                     plan_mode="sampled").boundaries)
     auto = plan_rowmap(m, 8, balance="commvol", plan_mode="auto")
     exact = plan_rowmap(m, 8, balance="commvol", plan_mode="exact")
     assert np.array_equal(auto.boundaries, exact.boundaries)

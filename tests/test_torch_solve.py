@@ -135,21 +135,50 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(layout="auto"), NotImplementedError, "not ported yet"),
+    (dict(layout="auto", spmv_sstep=2), NotImplementedError,
+     "not ported yet"),
     (dict(spmv_comm="compressed", spmv_sstep=2), NotImplementedError,
      "not ported yet"),
     (dict(spmv_sstep=2), NotImplementedError, "not ported yet"),
-    (dict(plan_mode="sampled", spmv_balance="commvol"), NotImplementedError,
-     "not ported yet"),
+    (dict(plan_mode="sampled", spmv_balance="commvol", spmv_reorder="rcm"),
+     ValueError, "cannot plan reorder"),
     (dict(redist_impl="nccl"), ValueError, "unknown redist_impl"),
 ], ids=["layout-auto", "compressed-sstep", "sstep", "sampled-commvol",
         "redist-impl"])
 def test_unported_options_raise(change, error, match):
-    """What is not ported yet raises ``NotImplementedError`` naming
-    ROADMAP; an option value that does not exist raises ``ValueError``."""
+    """What is not ported yet (the s-step filter, with or without the
+    planner) raises ``NotImplementedError`` naming ROADMAP; what the
+    reference refuses (a sampled RCM order) and an option value that does
+    not exist raise ``ValueError``."""
     cfg = FDConfig(**{**CASE, **change})
     with pytest.raises(error, match=match):
-        FilterDiag(SpinChainXXZ(6, 3), cfg, device="cpu")
+        FilterDiag(SpinChainXXZ(6, 3), cfg, device="cpu", n_row=2)
+
+
+@pytest.mark.parametrize("change", [
+    dict(layout="auto"),
+    dict(plan_mode="sampled", spmv_balance="commvol"),
+], ids=["layout-auto", "sampled-commvol"])
+def test_planner_options_solve(change):
+    """``layout="auto"`` (the planner) and ``plan_mode="sampled"`` (the
+    sampled row map) solve on a 2 x 2 grid: the eigenvalues of ``eigh``;
+    the auto solve keeps its plan and runs its best candidate."""
+    m = SpinChainXXZ(10, 5)
+    cfg = FDConfig(**{**CASE, "n_target": 3, "target": -4.5,
+                      "max_iters": 40, **change})
+    fd = FilterDiag(m, cfg, device="cpu", n_row=2, n_col=2)
+    if cfg.layout == "auto":
+        best = fd.plan.best
+        assert fd.cfg.layout == best.layout and cfg.layout == "auto"
+        assert (fd.N_row, fd.N_col) == (best.n_row, best.n_col)
+        assert fd.cfg.spmv_comm == best.comm
+    else:
+        assert fd.rowmap.P == 4 and fd.rowmap.balance == "commvol"
+    res = fd.solve()
+    w = np.linalg.eigvalsh(m.build_csr().to_dense())
+    assert res.n_converged >= 3
+    np.testing.assert_allclose(np.sort(res.eigenvalues)[:3], w[:3],
+                               atol=1e-7)
 
 
 def test_default_config_solves_as_stack():

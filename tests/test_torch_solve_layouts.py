@@ -145,11 +145,22 @@ def test_cli_runs_the_layouts_on_the_cpu(capsys, layout, grid, shown):
     assert res.redistributions == 2 * res.iterations
 
 
-@pytest.mark.parametrize("flags", [["--layout", "auto"],
-                                   ["--plan-mode", "sampled"]])
-def test_cli_refuses_what_is_not_ported(capsys, flags):
+@pytest.mark.parametrize("flags,shown", [
+    (["--layout", "auto", "--n-row", "2"], "[auto] planned in"),
+    (["--plan-mode", "sampled", "--spmv-balance", "commvol", "--n-row", "4",
+      "--n-col", "2", "--layout", "panel"], "row map: RowMap(balance=commvol"),
+])
+def test_cli_runs_the_planner_flags(capsys, flags, shown):
+    """``--layout auto`` plans over the splits of P shards and prints the
+    ranking before it solves; ``--plan-mode sampled`` plans the commvol
+    map from a row subsample."""
     fam, params = _smoke()
-    with pytest.raises(SystemExit):
-        cli.main(["--family", fam, "--device", "cpu", *flags],
-                 verbose=False)
-    assert "not ported yet, see ROADMAP" in capsys.readouterr().err
+    argv = ["--family", fam,
+            "--params", ",".join(f"{k}={v}" for k, v in params.items()),
+            "--n-target", "4", "--n-search", "16", "--target", str(TARGET),
+            "--tol", "1e-8", "--max-iters", "40", "--device", "cpu", *flags]
+    res = cli.main(argv, verbose=False)
+    out = capsys.readouterr().out
+    assert res.n_converged >= 4 and shown in out
+    if "auto" in flags:
+        assert "layout plan: RoadNet" in out and "machine=h100-1card" in out
