@@ -28,7 +28,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      (complex128); ``ell_gather`` and its epilogue entry on the RoadNet
      pillar 1 × 8 solve's one-shard RCM operator at n_b = 8 and on the
      four shard blocks of the HubNet(48000) panel 4 × 2 solve's commvol
-     operator (with their halo rows) at n_b = 32, fp64.
+     operator (with their halo rows) at n_b = 32, fp64;
+   * the s-step filter's step-0 blocks: each of the 8 shards' ``[R + G,
+     W_0]`` block of the depth-3 operators of HubNet(48000) and
+     RoadNet(48000) at P = 8 (the two s-step solves' operators), against
+     the extended block ``[R + G, 64]``, through ``ell_gather`` and its
+     epilogue entry, each bit-equal to its plain version in fp64.
 
    The DIA step's bound counts the compact operator its kernel reads,
    once (the earlier formula, which counted the dense dvals, is kept
@@ -57,7 +62,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    [853,776 × 512] block at P = 4 (‖V − QR‖/‖V‖ ≤ 1e-13, ‖QᵀQ − I‖ ≤
    1e-12, |diag R| equal to the one-shard QR's to 1e-10) and a degree-32
    filter at P = 4 against the one-shard DIA route (≤ 1e-10 of max|Y|).
-   The exchange on one card is a device copy, not a network transfer;
+   The exchange on one card is a device copy, not a network transfer.
+   Then the s-step filter (``make_sstep_cheb``): RoadNet(48000) at P = 8
+   (fp64, n_b = 64, degree 16) and Exciton(L=30) at P = 4 (complex128,
+   n_b = 384, degree 8), at s = 2 and 3, through a2a, compressed-cyclic
+   with and without overlap and compressed-matching, kernels on: each
+   filter bit-equal to the s = 1 filter through the same engine (the
+   fused step), s = 3 on RoadNet and s = 2 on Exciton through a2a also to
+   the same s-step filter from the plain versions on the card; its bytes
+   and calls equal to ``P·sstep_collectives`` of ``comm_plan(sstep=s)``;
+   the filter's ms, exchanges and launches beside the s = 1 filter's;
 5. layouts — the vertical layer at P = 4 shards in the layouts stack
    4 × 1, panel 2 × 2 and pillar 1 × 4, on Hubbard(12,6) (fp64,
    N_s = 512) and Exciton(L=30) (complex128, N_s = 384), the filter's
@@ -92,7 +106,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      beside ``estimate_comm``'s centre and ``ChiBand`` at the default
      fraction and at 0.25;
 
+   * the sampled planner: ``plan_layout(plan_mode="sampled")`` of
+     HubNet(48000) at P = 8 with the fit (the sampled χ and commvol
+     descent), its best three and host seconds;
+
    the ``--layout auto`` solve this fit drives runs among the solves;
+   after the solves, ``plan_layout``'s s ∈ {1, 3} stack candidates at
+   P = 8 for HubNet and RoadNet with the fit, each one card's predicted
+   step (``P·t_iter`` at the solve's mean degree) beside the measured
+   wall per filter step of the s = 1 and s = 3 solves;
 7. solves — ``repro_torch.launch.solve`` in-process, kernels on, each with
    the launch counts set to 0 just before it and read just after, every
    returned pair re-checked on the host against a scipy CSR of the port's
@@ -103,10 +125,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      launch;
    * Exciton(L=30) (the exciton200 config cut to one card) at N_s = 384,
      complex128, τ just below the spectrum, n_target cut to 8 (its
-     depth: the pillar solve below takes the config's 100); both kernels
-     must launch;
+     depth); both kernels must launch;
    * Exciton(L=30) in the pillar layout 1 × 4 (the exciton200 config's
-     production layout, paper Table 4) at N_s = 384, n_target = 100:
+     production layout, paper Table 4) at N_s = 384, n_target cut from
+     the config's 100 to 16:
      ``cheb_dia`` (the bundles' steps) and ``ell_gather`` must launch, the
      epilogue entry must not; every eigenvalue the stack solve returned
      (at least 8) equal to one of its own to 1e-9, with multiplicity;
@@ -119,18 +141,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * the same RoadNet solve at 8 row shards (``--n-row 8 --spmv-comm
      compressed --spmv-overlap``: the split-phase cyclic engine), its
      eigenvalues equal to the one-shard solve's to 1e-9;
+   * that solve with the s-step filter (``--spmv-sstep 3``): its
+     iterations, degrees and eigenvalues equal to the 8-shard solve's bit
+     for bit;
    * HubNet(48000) (the hubnet48k config's matrix) at 8 row shards with
      the matching rounds (``--spmv-schedule matching``), N_s = 64,
-     n_target = 16, τ 0.1 above its largest eigenvalue (``eigsh``);
+     n_target = 16, τ 0.1 above its largest eigenvalue (``eigsh``), and
+     that solve with ``--spmv-sstep 3``, equal to it bit for bit in
+     iterations, degrees and eigenvalues;
    * the same HubNet solve in the panel layout 4 × 2 on the planned
      commvol row map (``--spmv-balance commvol``, D_pad = 72,000): the
      ELL kernel and its epilogue entry must launch, the DIA kernel must
      not; its eigenvalues equal to the 8-shard solve's to 1e-9;
    * the same HubNet solve with ``--layout auto --n-row 8 --plan-mode
-     sampled --machine <the plan phase's fit>``: the planner's report and
-     the split, layout and engine it ran; the ELL kernel and its
-     epilogue entry must launch, the DIA kernel must not; its eigenvalues
-     equal to the 8-shard solve's to 1e-9;
+     auto --spmv-sstep 3 --machine <the plan phase's fit>``: the
+     planner's report, which must list ``+s3`` candidates (the s-step
+     axis needs the exact pattern pass; ``auto`` takes it at this size),
+     and the split, layout, engine and depth it ran; the ELL kernel and
+     its epilogue entry must launch, the DIA kernel must not; its
+     eigenvalues equal to the 8-shard solve's to 1e-9;
    * the RoadNet solve in the pillar layout 1 × 8 on the RCM row map
      (``--spmv-reorder rcm``): the ELL route with no halo in the filter;
      its eigenvalues equal to the one-shard solve's to 1e-9.
@@ -175,8 +204,10 @@ MAX_ITERS = 60  # ~48 needed at the tolerance below (53 at 1e-10)
 CUT_TOL = 5e-9
 # the exciton200 config cut to one card (L = 200 -> 30), its N_s and N_t
 EXCITON = dict(L=30)
-EX_N_SEARCH, EX_N_TARGET = 384, 100
-EX_MAX_ITERS = 300  # ~195 needed
+# the pillar solve's depth, cut from the config's 100 to 16 to make room
+# for the s-step solves (194 iterations, 313.925 s at 100)
+EX_N_SEARCH, EX_N_TARGET = 384, 16
+EX_MAX_ITERS = 300
 TOPINS = dict(Lx=40)  # D = 256,000
 # the roadnet48k config's matrix and N_s, N_t
 ROADNET = dict(n=48000, w=2, m=1200, k=4)
@@ -186,8 +217,10 @@ RN_MAX_ITERS = 400  # ~150 needed at the upper edge
 HUBNET = dict(n=48000, w=2, h=5, m=512, k=4)
 HN_N_SEARCH, HN_N_TARGET, HN_MAX_ITERS = 64, 16, 400
 # the Exciton stack solve's depth, cut from 16 to 8 to make room for the
-# plan phase: the pillar solve takes N_t = 100
+# plan phase
 EX_STACK_N_TARGET = 8
+# the s-step solves' depth and shards
+SSTEP, SSTEP_P = 3, 8
 # the vertical layer's solves: (n_row, n_col) of their grids
 EX_PILLAR, HN_PANEL, RN_PILLAR = (1, 4), (4, 2), (1, 8)
 # bundle widths n_c = N_s / N_col of those solves, and of the layouts
@@ -384,14 +417,15 @@ def time_add(records: list, case: str, x, w2, dtype: str) -> None:
 
 def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
              gen, sweep: bool = False, cheb: bool = False,
-             Rx: int | None = None) -> None:
+             Rx: int | None = None, bitwise: tuple = BITWISE) -> None:
     """``ell_gather`` against its plain version on ``x [Rx, nb]`` (``Rx``
     defaults to the R rows of ``cols``; a shard's block of a P-shard
     operator reads ``[x_p ‖ halo]``, ``R + H`` rows); ``sweep`` times the
     forced slab widths of ``SLAB_SWEEP``; ``cheb`` also holds the epilogue
     entry (``ell_gather_cheb``, ``2a·A·x + 2b·w1 − w2`` with w1, w2
     blocks of their own) to its plain version, bit for bit in fp64 and
-    complex128, against the same cuSPARSE product."""
+    complex128, against the same cuSPARSE product. ``bitwise`` names the
+    dtypes in which the product, too, must be bit-equal."""
     import torch
 
     from repro_torch.kernels import plan, ref
@@ -413,7 +447,8 @@ def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
         "ell_gather", f"{label} n_b={nb}", dtype,
         lambda: k_ell(cols, vals, x, compact=cpe),
         lambda: ref.ell_spmv_ref(cols, vals, x), n_bytes, flops,
-        library=lambda: A @ x, slab=ell_slab(cpe, nb, S)))
+        library=lambda: A @ x, slab=ell_slab(cpe, nb, S),
+        bitwise_dtypes=bitwise))
     if cheb:
         w1, w2 = (torch.randn((R, nb), generator=gen, device="cuda",
                               dtype=torch.complex128 if tdt.is_complex
@@ -639,6 +674,38 @@ def phase_kernels_families(records: list) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_kernels_sstep(records: list) -> None:
+    """The s-step solves' step-0 blocks: each shard's ``[R + G, W_0]``
+    block of the depth-3 operators of HubNet(48000) and RoadNet(48000) at
+    P = 8 against the extended block ``[R + G, n_b]``, through
+    ``ell_gather`` and its epilogue entry (a later group's first step),
+    bit-equal to the plain versions in fp64."""
+    import torch
+
+    from repro_torch.core import build_sstep_ell
+    from repro_torch.matrices import HubNet, RoadNet
+
+    gen = torch.Generator(device="cuda").manual_seed(2029)
+    for fam, params, label, nb in ((HubNet, HUBNET, "HubNet", HN_N_SEARCH),
+                                   (RoadNet, ROADNET, "RoadNet",
+                                    RN_N_SEARCH)):
+        t0 = time.perf_counter()
+        mat = fam(**params)
+        sell = build_sstep_ell(mat, SSTEP_P, SSTEP, dtype="float64",
+                               device="cuda")
+        cols, vals = sell.steps[0]
+        log(f"[kernels] {mat.describe()} P={SSTEP_P} s={SSTEP}: R={sell.R} "
+            f"G={sell.G} L={sell.L} widths "
+            f"{[int(c.shape[2]) for c, _ in sell.steps]} ghost_cum "
+            f"{sell.ghost_cum}; built in {time.perf_counter() - t0:.2f} s")
+        for p in range(SSTEP_P):
+            ell_case(records, f"{label} P={SSTEP_P} s={SSTEP} step 0 shard "
+                     f"{p}", cols[p], vals[p], nb, "float64", gen, cheb=True,
+                     Rx=sell.R + sell.G, bitwise=("float64",))
+        del sell, cols, vals
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- engines --
 
 #: (comm, schedule, overlap, pipeline) of the horizontal layer's engines
@@ -845,6 +912,151 @@ def tsqr_and_filter_case(gen) -> dict:
     return out
 
 
+#: (comm, schedule, overlap) of the s-step filter's engines phase
+SSTEP_ENGINES = (("a2a", "cyclic", False), ("compressed", "cyclic", False),
+                 ("compressed", "cyclic", True),
+                 ("compressed", "matching", False))
+# timed filters of each cell (after the checked one): RoadNet's take
+# ~10 ms and spread, Exciton's ~150 ms
+SSTEP_REPS = dict(RoadNet=10, Exciton=3)
+
+
+def sstep_filters_case(label: str, mat, dtype: str, nb: int, P: int,
+                       degree: int, plain_s: int, gen) -> dict:
+    """The s-step filter on ``mat`` at ``P`` shards, kernels on: for each
+    engine of ``SSTEP_ENGINES`` the s = 1 filter (``chebyshev_filter``
+    with the fused step) and the s = 2 and 3 filters
+    (``make_sstep_cheb``) from one seeded block, each s-step filter
+    bit-equal to the s = 1 one, its bytes and calls equal to ``P·
+    sstep_collectives`` of ``comm_plan(sstep=s)``; the a2a filter at
+    ``s = plain_s`` also bit-equal to the same filter from the plain
+    versions on the card. Times (CUDA events), exchanges, launches and
+    peak memory of each filter."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ShardGroup, build_dist_ell, build_filter,
+                                  build_sstep_ell, chebyshev_filter,
+                                  make_fused_cheb_step, make_spmv,
+                                  make_sstep_cheb, scale_params)
+    from repro_torch.core.planner import comm_plan
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    ell = build_dist_ell(mat, P, dtype=dtype, split_halo=True, device="cuda")
+    sells = {s: build_sstep_ell(mat, P, s, dtype=dtype, split_halo=True,
+                                device="cuda") for s in (2, 3)}
+    plans = {s: comm_plan(mat, P, sstep=s, d_pad=ell.D_pad) for s in sells}
+    host_s = time.perf_counter() - t0
+    for s, sell in sells.items():
+        if not (plans[s].L == sell.L and np.array_equal(
+                plans[s].pair_counts, sell.pair_counts)
+                and plans[s].ghost_cum == sell.ghost_cum):
+            raise SmokeFailure(f"s-step {label} s={s}: comm_plan predicts "
+                               "other volumes than the built operator's")
+    S = ell.vals.element_size()
+    info = dict(case=label, P=P, n_b=nb, dtype=dtype, degree=degree,
+                D_pad=ell.D_pad, R=ell.R, L1=ell.L, host_build_s=host_s,
+                ops={s: dict(G=sell.G, L=sell.L, ghost_cum=sell.ghost_cum,
+                             widths=[int(c.shape[2]) for c, _ in sell.steps],
+                             work_factor=plans[s].sstep_work_factor())
+                     for s, sell in sells.items()}, rows=[])
+    log(f"[sstep] {label}: P={P} R={ell.R} L(s=1)={ell.L}; "
+        + "; ".join(f"s={s} G={o['G']} L={o['L']} widths {o['widths']} "
+                    f"ghost_cum {o['ghost_cum']} work factor "
+                    f"{o['work_factor']:.4f}" for s, o in info["ops"].items())
+        + f"; host build {host_s:.2f} s")
+    tdt = ell.vals.dtype
+    V = torch.randn((ell.D_pad, nb), generator=gen, device="cuda",
+                    dtype=torch.complex128 if tdt.is_complex
+                    else torch.float64).to(tdt)
+    V[ell.D:] = 0
+    lam = mat.spectral_bounds_hint()
+    alpha, beta = scale_params(*lam)
+    poly = build_filter((lam[0], lam[0] + 0.1 * (lam[1] - lam[0])), lam,
+                        degree=degree)
+    mu = poly.mu
+
+    def measured(fn, g):
+        """One filter: its result, launches and the group's counts."""
+        g.reset_counts()
+        before = dict(build.launches)
+        torch.cuda.reset_peak_memory_stats()
+        Y = fn()
+        torch.cuda.synchronize()
+        launches = sum(build.launches[k] - before[k] for k in before)
+        return Y, launches, dict(g.bytes), dict(g.calls)
+
+    for comm, sched, ov in SSTEP_ENGINES:
+        kw = dict(overlap=ov, comm=comm, schedule=sched)
+        name = engine_name(comm, sched, ov, False)
+        g1 = ShardGroup(P, "cuda")
+        spmv = make_spmv(ell, group=g1, use_kernel=True, pipeline=False, **kw)
+        step = make_fused_cheb_step(ell, group=g1, use_kernel=True,
+                                    pipeline=False, **kw)
+
+        def one():
+            return chebyshev_filter(spmv, mu, alpha, beta, V, fused_step=step)
+
+        Y1, launches1, _, _ = measured(one, g1)
+        ms1 = time_ms(one, SSTEP_REPS[label], warmup=0)
+        row = dict(engine=name, s1_ms=ms1, s1_launches=launches1,
+                   s1_exchanges=degree, cells=[])
+        kind = "all_to_all" if comm == "a2a" else "ppermute"
+        for s, sell in sells.items():
+            g = ShardGroup(P, "cuda")
+            f = make_sstep_cheb(sell, group=g, use_kernel=True, **kw)
+            Y, launches, nbytes, ncalls = measured(
+                lambda: f(V, mu, alpha, beta), g)
+            peak = torch.cuda.max_memory_allocated()
+            bitwise = bool(torch.equal(Y, Y1))
+            terms = plans[s].sstep_collectives(comm, sched, nb, S, degree)
+            want_bytes = P * sum(b * c for _, b, c in terms)
+            want_calls = sum(c for _, _, c in terms)
+            plain_ok = None
+            if comm == "a2a" and s == plain_s:
+                fp = make_sstep_cheb(sell, group=ShardGroup(P, "cuda"), **kw)
+                plain_ok = bool(torch.equal(Y, fp(V, mu, alpha, beta)))
+                torch.cuda.synchronize()
+                del fp
+            del Y
+            ms = time_ms(lambda: f(V, mu, alpha, beta), SSTEP_REPS[label],
+                         warmup=0)
+            cell = dict(s=s, kind=f.kind, ms=ms, ratio_to_s1=ms / ms1,
+                        launches=launches, exchanges=sell.n_groups(degree),
+                        bytes=nbytes[kind], bytes_predicted=want_bytes,
+                        calls=ncalls[kind], calls_predicted=want_calls,
+                        bitwise_to_s1=bitwise, bitwise_to_plain=plain_ok,
+                        max_memory_allocated=peak)
+            row["cells"].append(cell)
+            log(f"[sstep] {label} {f.kind} degree {degree}: filter "
+                f"{ms:.4f} ms (s=1 {ms1:.4f} ms, ratio {ms / ms1:.3f}), "
+                f"exchanges {cell['exchanges']} (s=1 {degree}), launches "
+                f"{launches} (s=1 {launches1}), bytes {nbytes[kind]} "
+                f"(predicted {want_bytes}), calls {ncalls[kind]} (predicted "
+                f"{want_calls}), bitwise to s=1 {bitwise}"
+                + ("" if plain_ok is None else
+                   f", to the plain versions {plain_ok}")
+                + f", max_memory_allocated {peak} B")
+            where = f"s-step {label} {f.kind}"
+            if not bitwise:
+                raise SmokeFailure(f"{where}: differs from the s = 1 filter")
+            if plain_ok is False:
+                raise SmokeFailure(f"{where}: differs from its plain version")
+            if nbytes[kind] != want_bytes or ncalls[kind] != want_calls:
+                raise SmokeFailure(f"{where}: bytes/calls {nbytes[kind]}/"
+                                   f"{ncalls[kind]}, predicted {want_bytes}/"
+                                   f"{want_calls}")
+            del f, g
+            torch.cuda.empty_cache()
+        info["rows"].append(row)
+        del Y1, spmv, step, g1
+        torch.cuda.empty_cache()
+    del V, ell, sells
+    torch.cuda.empty_cache()
+    return info
+
+
 def phase_engines() -> dict:
     """The eight engines on Hubbard(12,6) (fp64, n_b = 512) and
     Exciton(L=30) (complex128, n_b = 384) at P = 4 and on RoadNet(48000)
@@ -861,6 +1073,11 @@ def phase_engines() -> dict:
         engines_case("RoadNet", RoadNet(**ROADNET), "float64", RN_N_SEARCH,
                      gen, P=8, reps=50)])
     out.update(tsqr_and_filter_case(gen))
+    out["sstep"] = [
+        sstep_filters_case("RoadNet", RoadNet(**ROADNET), "float64",
+                           RN_N_SEARCH, SSTEP_P, 16, 3, gen),
+        sstep_filters_case("Exciton", Exciton(**EXCITON), "complex128",
+                           EX_N_SEARCH, ENG_P, 8, 2, gen)]
     return out
 
 
@@ -1154,7 +1371,88 @@ def phase_plan(layouts: dict, fit_path: str) -> dict:
             f"{r['host_seconds']:.3f} s) {r['sampled']}, band {r['band']} "
             f"(level {est.band.level}), contains the exact "
             f"{r['band_contains_exact']}")
+    # the sampled planner (sampled chi, the coarsened commvol descent),
+    # which the auto solve no longer takes: its s-step axis needs the
+    # exact pattern pass
+    t0 = time.perf_counter()
+    plan = plan_layout(mat, 8, n_search=HN_N_SEARCH, machine=fit,
+                       kernel=(True,), plan_mode="sampled",
+                       d_pad=-(-mat.D // 8) * 8)
+    rec["sampled_plan"] = dict(
+        host_seconds=time.perf_counter() - t0,
+        best=[dict(candidate=c.describe(), t_pass_ms=c.t_pass * 1e3)
+              for c in plan.candidates[:3]])
+    log(f"[plan] HubNet(48000) P=8 sampled plan_layout in "
+        f"{rec['sampled_plan']['host_seconds']:.3f} s on the host, best "
+        "three: " + "; ".join(f"{b['candidate']} t_pass {b['t_pass_ms']:.3f}"
+                              f" ms" for b in rec["sampled_plan"]["best"]))
     return rec
+
+
+def sstep_plan_case(fit_path: str, solves: dict) -> dict:
+    """``plan_layout``'s s ∈ {1, 3} stack candidates at P = 8 for HubNet
+    and RoadNet under the plan phase's fit, each at its solve's mean
+    filter degree: one card's predicted step (``P·t_iter``) beside the
+    measured wall per filter step of the s = 1 and s = 3 solves (the
+    whole solve's wall over its filter steps)."""
+    import numpy as np
+
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.planner import plan_layout
+    from repro_torch.matrices import HubNet, RoadNet
+
+    fit = pm.resolve_machine(fit_path)
+    P = SSTEP_P
+    out = []
+    for label, fam, params, n_s, s1, s3, comm in (
+            ("HubNet", HubNet, HUBNET, HN_N_SEARCH, "hubnet_p8", "hubnet_s3",
+             ("compressed", "matching", False)),
+            ("RoadNet", RoadNet, ROADNET, RN_N_SEARCH, "roadnet_p8",
+             "roadnet_s3", ("compressed", "cyclic", True))):
+        mat = fam(**params)
+        degree = int(round(np.mean(solves[s1]["degrees"])))
+        t0 = time.perf_counter()
+        plan = plan_layout(mat, P, n_search=n_s, machine=fit,
+                           splits=[(P, 1)], balance=("rows",),
+                           kernel=(True,), sstep=(1, SSTEP), degree=degree,
+                           d_pad=-(-mat.D // P) * P)
+        host_s = time.perf_counter() - t0
+        rows = []
+        for c in plan.candidates:
+            rows.append(dict(candidate=c.describe(), sstep=c.sstep,
+                             t_iter_ms=c.t_iter * 1e3,
+                             card_step_ms=P * c.t_iter * 1e3))
+        log(f"[plan] {label} P={P} s in {{1, {SSTEP}}} at degree {degree} "
+            f"({host_s:.3f} s on the host): " + "; ".join(
+                f"{r['candidate']} t_iter {r['t_iter_ms']:.4f} ms"
+                for r in rows))
+        comm_, sched, ov = comm
+        pick = {}
+        for s, solve in ((1, s1), (SSTEP, s3)):
+            # the solve's engine; the planner has no overlap at s > 1
+            c = next(c for c in plan.candidates
+                     if c.sstep == s and c.comm == comm_
+                     and c.schedule == sched and c.overlap == (ov and s == 1))
+            steps = sum(solves[solve]["degrees"])
+            pick[s] = dict(solve=solve, candidate=c.describe(),
+                           card_step_ms_predicted=P * c.t_iter * 1e3,
+                           wall_per_step_ms=solves[solve]["wall_s"] / steps
+                           * 1e3, filter_steps=steps)
+        pred = pick[SSTEP]["card_step_ms_predicted"] / pick[1][
+            "card_step_ms_predicted"]
+        meas = pick[SSTEP]["wall_per_step_ms"] / pick[1]["wall_per_step_ms"]
+        for s in (1, SSTEP):
+            r = pick[s]
+            log(f"[plan] {label} {r['candidate']} ({r['solve']}): a step "
+                f"predicted {r['card_step_ms_predicted']:.4f} ms, measured "
+                f"{r['wall_per_step_ms']:.4f} ms a filter step (the solve's "
+                f"wall over its {r['filter_steps']} filter steps)")
+        log(f"[plan] {label} s={SSTEP} / s=1: predicted {pred:.3f}, "
+            f"measured {meas:.3f}")
+        out.append(dict(case=label, P=P, degree=degree, host_seconds=host_s,
+                        candidates=rows, picks=pick, ratio_predicted=pred,
+                        ratio_measured=meas))
+    return out
 
 
 def host_operator(fam, params: dict, which: str):
@@ -1196,6 +1494,8 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
     from repro_torch.kernels import build
     from repro_torch.launch import solve as cli
 
+    import contextlib
+
     argv = ["--family", family,
             "--params", ",".join(f"{k}={v:g}" for k, v in params.items()),
             "--n-search", str(n_search), "--n-target", str(n_target),
@@ -1207,17 +1507,22 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
+    printed = _Tee(sys.stdout)
     t0 = time.perf_counter()
-    res = cli.main(argv)
+    with contextlib.redirect_stdout(printed):
+        res = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     degrees = [h.get("degree") for h in res.history if "degree" in h]
     late = res.history[-1].get("unconverged", [])
+    ex = res.exchange
     log(f"[solve {label}] wall {wall:.3f} s, iterations {res.iterations}, "
         f"converged {res.n_converged}/{n_target}, degrees {degrees}, "
-        f"max_memory_allocated {peak} B, launches {launches}; the "
+        f"max_memory_allocated {peak} B, launches {launches}, filter "
+        f"{ex['filter_engine']} (depth {ex['sstep']}) with "
+        f"{ex['filter_exchanges']} halo exchanges; the "
         f"window's unconverged (theta, residual) at the stop: {late}")
     if res.n_converged < n_target:
         raise SmokeFailure(f"{label} solve converged {res.n_converged} < "
@@ -1255,7 +1560,28 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
                 eigenvalues=[float(t) for t in theta], target=target,
                 unconverged_at_stop=late,
                 dtype=str(X.dtype), exchange=res.exchange,
-                argv=" ".join(argv))
+                filter_exchanges=ex["filter_exchanges"],
+                eigenvalues_hex=[float(t).hex() for t in theta],
+                argv=" ".join(argv), printed=printed.getvalue())
+
+
+class _Tee:
+    """A stream that writes to ``out`` and keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def getvalue(self) -> str:
+        """What was written, without the per-iteration ``[fd]`` lines."""
+        return "".join(line for line in "".join(self.parts).splitlines(True)
+                       if not line.startswith("[fd]"))
 
 
 def closest(values, target: float, n: int):
@@ -1317,6 +1643,24 @@ def agree_returned(out: dict, label: str, other: str, n: int,
                            f"max |d| {dev:.3e}, multiplicities {short}")
 
 
+def agree_bitwise(out: dict, label: str, other: str) -> None:
+    """Hold solve ``label`` (the s-step filter) to solve ``other`` (its
+    s = 1 partner, from the same draws): the same iterations and filter
+    degrees, and the same eigenvalues bit for bit."""
+    a, b = out[label], out[other]
+    same = dict(iterations=a["iterations"] == b["iterations"],
+                degrees=a["degrees"] == b["degrees"],
+                eigenvalues=a["eigenvalues_hex"] == b["eigenvalues_hex"])
+    a[f"bitwise_to_{other}"] = same
+    log(f"[solve {label}] vs {other}: {same}; wall {a['wall_s']:.3f} / "
+        f"{b['wall_s']:.3f} s, launches {a['launches']} / {b['launches']}, "
+        f"filter exchanges {a['filter_exchanges']} / "
+        f"{b['filter_exchanges']}, max_memory_allocated "
+        f"{a['max_memory_allocated']} / {b['max_memory_allocated']} B")
+    if not all(same.values()):
+        raise SmokeFailure(f"{label} differs from {other}: {same}")
+
+
 def grid(n_row_col) -> tuple:
     """The CLI's grid flags of ``(n_row, n_col)``."""
     return ("--n-row", str(n_row_col[0]), "--n-col", str(n_row_col[1]))
@@ -1365,6 +1709,14 @@ def phase_solves(fit_path: str) -> dict:
         launched=ell_route, engine=("--n-row", "8", "--spmv-comm",
                                     "compressed", "--spmv-overlap"))
     agree(out, "roadnet_p8", "roadnet", RN_N_TARGET)
+    # the s-step filter on the same engine, from the same draws
+    out["roadnet_s3"] = run_solve(
+        "roadnet_s3", "RoadNet", ROADNET, A, n_search=RN_N_SEARCH,
+        n_target=RN_N_TARGET, target=lam + 0.1, max_iters=RN_MAX_ITERS,
+        launched=ell_route, engine=("--n-row", str(SSTEP_P), "--spmv-comm",
+                                    "compressed", "--spmv-overlap",
+                                    "--spmv-sstep", str(SSTEP)))
+    agree_bitwise(out, "roadnet_s3", "roadnet_p8")
     # the pillar 1 x 8 on the RCM map: no halo in the filter
     out["roadnet_pillar"] = run_solve(
         "roadnet_pillar", "RoadNet", ROADNET, A, n_search=RN_N_SEARCH,
@@ -1381,6 +1733,13 @@ def phase_solves(fit_path: str) -> dict:
                                     "compressed", "--spmv-schedule",
                                     "matching"))
     out["hubnet_p8"]["eigsh_upper_edge"] = lam
+    out["hubnet_s3"] = run_solve(
+        "hubnet_s3", "HubNet", HUBNET, A, n_search=HN_N_SEARCH,
+        n_target=HN_N_TARGET, target=lam + 0.1, max_iters=HN_MAX_ITERS,
+        launched=ell_route, engine=("--n-row", str(SSTEP_P), "--spmv-comm",
+                                    "compressed", "--spmv-schedule",
+                                    "matching", "--spmv-sstep", str(SSTEP)))
+    agree_bitwise(out, "hubnet_s3", "hubnet_p8")
     # the panel 4 x 2 on the commvol map (D_pad 72,000)
     out["hubnet_panel"] = run_solve(
         "hubnet_panel", "HubNet", HUBNET, A, n_search=HN_N_SEARCH,
@@ -1390,16 +1749,28 @@ def phase_solves(fit_path: str) -> dict:
                                  "--spmv-schedule", "matching",
                                  "--spmv-balance", "commvol"))
     agree(out, "hubnet_panel", "hubnet_p8", HN_N_TARGET)
-    # the planner's choice on the card's fitted model (the plan phase)
+    # the planner's choice on the card's fitted model (the plan phase),
+    # the s-step axis in the ranking (exact pattern passes: plan mode auto
+    # at this size; the sampled planner runs in the plan phase)
     out["hubnet_auto"] = run_solve(
         "hubnet_auto", "HubNet", HUBNET, A, n_search=HN_N_SEARCH,
         n_target=HN_N_TARGET, target=lam + 0.1, max_iters=HN_MAX_ITERS,
         launched=ell_route, layout="auto",
-        engine=("--n-row", "8", "--plan-mode", "sampled", "--machine",
-                fit_path))
+        engine=("--n-row", "8", "--plan-mode", "auto", "--spmv-sstep",
+                str(SSTEP), "--machine", fit_path))
     ran = out["hubnet_auto"]["exchange"]
+    printed = out["hubnet_auto"]["printed"]
+    s_cands = [line.split()[0] for line in printed.splitlines()
+               if f"+s{SSTEP}(" in line.split(" ", 1)[0]]
+    chosen = [line for line in printed.splitlines()
+              if line.startswith("[auto]")]
+    out["hubnet_auto"]["sstep_candidates"] = s_cands
     log(f"[solve hubnet_auto] the planner ran {ran['layout']} with the "
-        f"{ran['engine']} engine")
+        f"{ran['filter_engine']} filter (depth {ran['sstep']}); {chosen}; "
+        f"+s{SSTEP} candidates in its report: {s_cands}")
+    if not s_cands:
+        raise SmokeFailure(f"the auto solve's plan lists no +s{SSTEP} "
+                           "candidate")
     agree(out, "hubnet_auto", "hubnet_p8", HN_N_TARGET)
     return out
 
@@ -1437,6 +1808,7 @@ def run(args) -> int:
     records: list = []
     phase_kernels(records)
     phase_kernels_families(records)
+    phase_kernels_sstep(records)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     if args.kernels_only:
         if args.out:
@@ -1463,6 +1835,9 @@ def run(args) -> int:
     t0 = time.perf_counter()
     solves = phase_solves(fit_path)
     log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    plan["sstep"] = sstep_plan_case(fit_path, solves)
+    log(f"[plan] s-step against the solves {time.perf_counter() - t0:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):

@@ -11,11 +11,14 @@ same state:
   plans' arrays and its row map;
 * a planned ``RowMap`` (``perm``, ``boundaries``, ``R``, ``P``,
   ``balance``, ``reorder``, ``sstep``);
+* an ``SstepEll`` of the s-step filter: its step blocks ``[P, R+G,
+  W_i]``, exchange plan, ghost statistics, split-phase blocks and its
+  ``SstepNeighbor`` plans' arrays;
 * a ``DiaPlan``'s ``offsets/dvals`` (``[1, n_diag, R]`` or
   ``[n_diag, R]``);
 * an ``FDState``'s search block ``V`` and interval ``lam``;
 * the planner's host values, as plain fields (numpy arrays, floats,
-  strings): a ``MachineModel``, an ``SpmvCommPlan``, a
+  strings): a ``MachineModel``, an ``SpmvCommPlan`` (at any depth s), a
   ``SampledCommEstimate`` (with its ``ChiMetrics`` and ``ChiBand``) and a
   ``Plan`` with its candidates, each with the row map it holds.
 
@@ -34,7 +37,7 @@ from .core.metrics import ChiMetrics
 from .core.partition import RowMap
 from .core.planner import Candidate, Plan, SpmvCommPlan
 from .core.sketch import ChiBand, SampledCommEstimate
-from .core.spmv import DistEll, NeighborPlan
+from .core.spmv import DistEll, NeighborPlan, SstepEll, SstepNeighbor
 from .device import resolve_device
 from .kernels.ops import DiaPlan
 from .kernels.plan import span_of
@@ -154,6 +157,81 @@ def dist_ell_from_arrays(cols, vals, D: int | None = None, *, send_idx=None,
     return ell
 
 
+def sstep_ell_from_arrays(steps, *, send_idx, gather_a2a, R: int, D: int,
+                          s: int, n_vc, pair_counts, ghost_cum, ghost_owner,
+                          ghost_rank, split=None, nbr=None,
+                          rowmap: RowMap | None = None,
+                          device=None) -> SstepEll:
+    """The port's s-step operator from a reference ``SstepEll``'s arrays.
+
+    ``steps`` the s pairs ``(cols, vals)`` ``[P, R+G, W_i]``; ``send_idx
+    [P, P, L]``, ``gather_a2a [P, G]``; ``n_vc``, ``pair_counts``,
+    ``ghost_cum``, ``ghost_owner``, ``ghost_rank`` host arrays; ``split``
+    the four arrays of ``SstepEll.split()``; ``nbr`` maps a schedule name
+    to a reference ``SstepNeighbor`` or a dict of its ``perms``,
+    ``round_L``, ``send_nbr`` and ``gather``; ``rowmap`` the map it was
+    built on (the equal-rows ``RowMap.rows(D, P, P·R)`` when none is
+    given). The span is taken in position space from the owned rows of
+    step 0, which hold every entry."""
+    dev = resolve_device(device)
+    steps = [(np.asarray(c).astype(np.int32), np.asarray(v))
+             for c, v in steps]
+    P, RG, _ = steps[0][0].shape
+    send_idx = np.asarray(send_idx).astype(np.int32)
+    ghost_owner = np.asarray(ghost_owner, dtype=np.int64)
+    ghost_rank = np.asarray(ghost_rank, dtype=np.int64)
+    L = int(send_idx.shape[2])
+    R = int(R)
+    if rowmap is None:
+        rowmap = RowMap.rows(int(D), P, P * R)
+    if rowmap.D_pad != P * R:
+        raise ValueError(f"the row map's D_pad={rowmap.D_pad} is not the "
+                         f"operator's {P}·{R}")
+    # step 0's owned rows in position numbering: a ghost address R + j of
+    # shard p is row send_idx[owner, p, rank] of its owner
+    c0, v0 = steps[0][0][:, :R].astype(np.int64), steps[0][1][:, :R]
+    p_of = np.broadcast_to(np.arange(P, dtype=np.int64)[:, None, None],
+                           c0.shape)
+    glob = p_of * R + c0
+    gh = c0 >= R
+    if gh.any():
+        j = c0[gh] - R
+        own = ghost_owner[p_of[gh], j]
+        glob[gh] = own * R + send_idx[own, p_of[gh], ghost_rank[p_of[gh], j]]
+    rows = np.broadcast_to(np.arange(P * R, dtype=np.int64).reshape(P, R, 1),
+                           c0.shape)
+    stored = v0 != 0
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    sell = SstepEll(
+        steps=tuple((t(c), t(v)) for c, v in steps),
+        send_idx=t(send_idx),
+        gather_a2a=t(np.asarray(gather_a2a).astype(np.int32)),
+        R=R, G=RG - R, L=L, P=P, D=int(D), s=int(s),
+        n_vc=np.asarray(n_vc, dtype=np.int64).copy(),
+        pair_counts=np.asarray(pair_counts, dtype=np.int64).copy(),
+        ghost_cum=tuple(int(g) for g in ghost_cum),
+        ghost_owner=ghost_owner.copy(), ghost_rank=ghost_rank.copy(),
+        span=span_of(rows[stored], glob[stored]), rowmap=rowmap)
+    if split is not None:
+        sell.cols_loc, sell.vals_loc, sell.cols_post, sell.vals_post = (
+            t(a) for a in split)
+    if nbr:
+        sell.nbr = {}
+        for name, plan in nbr.items():
+            get = (plan.get if isinstance(plan, dict)
+                   else lambda k, p=plan: getattr(p, k))
+            sell.nbr[name] = SstepNeighbor(
+                perms=tuple(tuple((int(a), int(b)) for a, b in perm)
+                            for perm in get("perms")),
+                round_L=tuple(int(x) for x in get("round_L")),
+                send_nbr=t(np.asarray(get("send_nbr")).astype(np.int32)),
+                gather=t(np.asarray(get("gather")).astype(np.int32)))
+    return sell
+
+
 def dia_plan_from_arrays(offsets, dvals, device=None) -> DiaPlan:
     """The port's DIA plan from a ``DiaPlan``'s ``offsets/dvals``."""
     dvals = _one_shard(dvals, 2, "dvals")
@@ -200,16 +278,14 @@ def machine_from_fields(m) -> pm.MachineModel:
 
 def comm_plan_from_fields(cp) -> SpmvCommPlan:
     """The port's :class:`~repro_torch.core.planner.SpmvCommPlan` from a
-    reference one (an s = 1 plan: the ghost-zone fields of the s-step
-    filter are not ported)."""
-    if int(cp.sstep) != 1:
-        raise ValueError("an s-step comm plan (sstep > 1) has no port "
-                         "counterpart yet")
+    reference one, at any depth (``sstep``, ``ghost_cum``)."""
     return SpmvCommPlan(
         n_row=int(cp.n_row), D=int(cp.D), L=int(cp.L),
         n_vc=_opt_array(cp.n_vc), exact=bool(cp.exact),
         d_pad=None if cp.d_pad is None else int(cp.d_pad),
-        pair_counts=_opt_array(cp.pair_counts),
+        pair_counts=_opt_array(cp.pair_counts), sstep=int(cp.sstep),
+        ghost_cum=(None if cp.ghost_cum is None
+                   else tuple(int(g) for g in cp.ghost_cum)),
         rowmap=_rowmap_of(cp.rowmap))
 
 

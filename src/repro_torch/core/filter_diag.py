@@ -51,8 +51,14 @@ included. The start block and the Lanczos vector are drawn real and cast,
 as the reference draws them (``repro/core/filter_diag.py:337``,
 ``repro/core/lanczos.py:31``).
 
-The s-step filter (``spmv_sstep > 1``) is not ported yet: asking for it
-raises.
+With ``spmv_sstep = s > 1`` every bundle's filter runs the s-step filter
+(``core/spmv.py::make_sstep_cheb``, the reference's ``filter_diag.py:
+201-207``, ``:280-289``): the panel-level operator is built with depth-s
+ghost zones on the solve's row map, and a degree-n filter runs ⌈n/s⌉
+exchanges of s steps each through the halo engine the config names, the
+CUDA ELL kernel on every step with ``spmv_kernel`` (never the DIA
+kernel, at ``N_row = 1`` too). Lanczos, the Ritz SpMV and TSQR stay at
+s = 1. The result equals the s = 1 filter's bit for bit.
 """
 from __future__ import annotations
 
@@ -68,10 +74,10 @@ from .lanczos import lanczos_interval
 from .layouts import LAYOUTS, layout_on_grid
 from .orthogonalize import make_gram, make_svqb, make_tsqr
 from .partition import PLAN_MODES, SPMV_BALANCES, SPMV_REORDERS, plan_rowmap
-from .planner import _not_ported, auto_axes, config_for, plan_on_grid
+from .planner import auto_axes, config_for, plan_on_grid
 from .redistribute import REDIST_IMPLS, make_redistribute
-from .spmv import (_validate_engine, build_dist_ell, make_fused_cheb_step,
-                   make_spmv)
+from .spmv import (_validate_engine, build_dist_ell, build_sstep_ell,
+                   make_fused_cheb_step, make_spmv, make_sstep_cheb)
 
 __all__ = ["FDConfig", "FDResult", "FDState", "FilterDiag"]
 
@@ -119,7 +125,8 @@ class FDResult:
     #: what the shards' collectives moved over the solve: the SpMV engine,
     #: the layout, P, L, bytes and calls per collective kind of the stack
     #: group (the redistributions under "redistribute") and of the panel
-    #: group (``FilterDiag.exchange_summary``)
+    #: group (``FilterDiag.exchange_summary``), the filter's depth s and
+    #: its halo exchanges
     exchange: dict | None = None
 
 
@@ -150,8 +157,8 @@ def _check_config(cfg: FDConfig) -> None:
         raise ValueError(f"unknown FDConfig.layout {cfg.layout!r} (expected "
                          "stack | panel | pillar | auto)")
     _validate_engine(cfg.spmv_comm, cfg.spmv_schedule)
-    if cfg.spmv_sstep != 1:
-        raise _not_ported(f"spmv_sstep={cfg.spmv_sstep}")
+    if int(cfg.spmv_sstep) < 1:
+        raise ValueError(f"spmv_sstep must be >= 1 (got {cfg.spmv_sstep})")
     for name, value, allowed in (
             ("redist_impl", cfg.redist_impl, REDIST_IMPLS),
             ("spmv_balance", cfg.spmv_balance, SPMV_BALANCES),
@@ -239,10 +246,26 @@ class FilterDiag:
         # the fused 2a·A·w1 + 2b·w1 - w2 body (the DIA kernel when the
         # operator has a DIA form and no halo, else the ELL kernel with
         # its epilogue)
+        self.sstep = int(cfg.spmv_sstep)
         self.fused_step = (
             make_fused_cheb_step(self.ell_panel, group=self.grid.panel,
                                  **{**engine, "use_kernel": True})
-            if cfg.spmv_kernel else None)
+            if cfg.spmv_kernel and self.sstep == 1 else None)
+        # the s-step filter (spmv_sstep > 1): depth-s ghost zones at the
+        # panel level, on the solve's row map; the stack level stays s = 1
+        self.sell_panel = self.cheb_sstep = None
+        if self.sstep > 1:
+            self.sell_panel = build_sstep_ell(
+                matrix, self.N_row, self.sstep, dtype=cfg.dtype,
+                d_pad=self.D_pad, split_halo=cfg.spmv_overlap,
+                rowmap=rowmap, device=self.device)
+            self.cheb_sstep = make_sstep_cheb(
+                self.sell_panel, group=self.grid.panel,
+                use_kernel=cfg.spmv_kernel, overlap=cfg.spmv_overlap,
+                comm=cfg.spmv_comm, schedule=cfg.spmv_schedule)
+        # the panel level's halo exchanges of every filter so far (a
+        # bundle's filter runs ceil(degree/s) of them; none without a halo)
+        self.filter_exchanges = 0
         if cfg.ortho == "tsqr":
             tsqr = make_tsqr(self.group)  # Q comes back row-major
             self.orthogonalize = lambda V: tsqr(V)[0]
@@ -299,11 +322,17 @@ class FilterDiag:
         """What the shards' collectives moved so far, each level apart:
         the stack engine's (``bytes``/``calls`` of the stack group, where
         ``"redistribute"`` holds the stack↔panel redistributions) and,
-        when ``N_col > 1``, the panel engine's (``panel``)."""
+        when ``N_col > 1``, the panel engine's (``panel``); the filter's
+        depth (``sstep``), engine (``filter_engine``, ``"...+s3"`` at
+        s = 3) and halo exchanges over every bundle's filter so far
+        (``filter_exchanges``)."""
         st, pn = self.grid.stack, self.grid.panel
         return dict(engine=self.engine, layout=self.layout.describe(),
                     P=self.P, L=self.ell.L, bytes=dict(st.bytes),
-                    calls=dict(st.calls),
+                    calls=dict(st.calls), sstep=self.sstep,
+                    filter_engine=(self.cheb_sstep.kind if self.sstep > 1
+                                   else self.spmv_panel.kind),
+                    filter_exchanges=self.filter_exchanges,
                     panel=None if pn is st else dict(
                         P=pn.P, L=self.ell_panel.L, bytes=dict(pn.bytes),
                         calls=dict(pn.calls)))
@@ -501,18 +530,29 @@ class FilterDiag:
         Vp = self._redistribute(state, self.to_panel, V)
         del V
         # each bundle's filter output becomes the bundle
-        bundles = [chebyshev_filter(self.spmv_panel, mu, alpha, beta, Vj,
-                                    fused_step=self.fused_step) for Vj in Vp]
+        bundles = [self._filter(Vj, mu, alpha, beta) for Vj in Vp]
         del Vp
+        exchanges = (-(-degree // self.sstep)
+                     if self.N_row > 1 and self.ell_panel.L > 0 else 0)
+        self.filter_exchanges += exchanges * self.N_col
         V = self._redistribute(state, self.to_stack, bundles)
         del bundles
         state.V = V
         state.total_spmvs += degree * cfg.n_search
         state.history[-1]["degree"] = degree
+        state.history[-1]["exchanges"] = exchanges
         state.pending = None
         state.iteration += 1
         state.wall_time += time.perf_counter() - t_begin
         return state
+
+    def _filter(self, V, mu, alpha, beta):
+        """One bundle's Chebyshev filter: the s-step filter at
+        ``spmv_sstep > 1``, else the per-step one."""
+        if self.cheb_sstep is not None:
+            return self.cheb_sstep(V, mu, alpha, beta)
+        return chebyshev_filter(self.spmv_panel, mu, alpha, beta, V,
+                                fused_step=self.fused_step)
 
     def _redistribute(self, state: FDState, move, X):
         """``move(X)`` (``to_panel`` or ``to_stack``); with ``N_col > 1``

@@ -40,7 +40,11 @@ the port's entry points:
   * ``python -m repro_torch.launch.solve --layout auto`` →
     :func:`plan_layout` over every split of ``P = n_row·n_col`` shards.
 
-The s-step axis (``sstep > 1``) is not ported yet: asking for it raises.
+  * sstep → the s-step filter (``spmv.make_sstep_cheb``): one depth-s
+              ghost exchange (``comm_plan(..., sstep=s)``, the χ(A^s)
+              volumes of ``spmv.sstep_ghosts``) per s recurrence steps,
+              ⌈n/s⌉ a filter, for redundant ghost-row work
+              (``SpmvCommPlan.sstep_work_factor``).
 """
 from __future__ import annotations
 
@@ -61,10 +65,6 @@ __all__ = [
     "estimate_nnzr", "plan_layout", "plan_on_grid", "auto_axes",
     "config_for", "DEFAULT_PLAN_DEGREE",
 ]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet, see ROADMAP")
 
 
 def _equal_rows(D: int, n_row: int,
@@ -122,6 +122,13 @@ class SpmvCommPlan:
     exact: bool
     d_pad: int | None = None
     pair_counts: np.ndarray | None = None  # [P, P] L_qp (sender q -> recv p)
+    #: ghost-zone depth the stats describe: 1 = the per-SpMV halo, s > 1 =
+    #: the depth-s ghost set of the s-step filter (χ(A^s)-derived volumes;
+    #: always an exact pattern pass)
+    sstep: int = 1
+    #: [s+1] max-over-shards ghost count at BFS depth ≤ d (d = 0 is 0): the
+    #: s-step filter's redundant-work statistic
+    ghost_cum: tuple | None = None
     #: schedule name -> (perms, round_L) memo — the greedy matching
     #: decomposition is O(P² log P), and plan_layout asks for it several
     #: times per candidate
@@ -196,6 +203,64 @@ class SpmvCommPlan:
             raise ValueError(f"unknown comm engine {comm!r}")
         return len(self.permute_schedule(schedule)[1])
 
+    # ----------------------------------------------------- s-step stats --
+
+    @property
+    def level_R(self) -> int:
+        """Padded rows per shard the plan's volumes were computed on."""
+        if self.rowmap is not None and not self.rowmap.identity:
+            return self.rowmap.level_R(self.n_row)
+        if self.d_pad is not None:
+            return self.d_pad // self.n_row
+        return -(-self.D // self.n_row)
+
+    def n_groups(self, degree: int) -> int:
+        """Exchanges of a degree-n s-step filter: ⌈n/s⌉."""
+        return -(-int(degree) // self.sstep)
+
+    def sstep_work_factor(self) -> float:
+        """Matrix-traffic inflation of the s-step filter: a group's steps
+        also contract the ghost rows still needed at later depths,
+        ``1 + Σ_{d=1}^{s-1} ghosts(≤d) / (s·R)`` (exactly 1 at s = 1)."""
+        if self.sstep < 2 or not self.ghost_cum:
+            return 1.0
+        extra = float(sum(self.ghost_cum[1:self.sstep]))
+        return 1.0 + extra / (self.sstep * max(self.level_R, 1))
+
+    def sstep_collectives(self, comm: str, schedule: str, n_b: int, S_d: int,
+                          degree: int) -> tuple[tuple[str, int, int], ...]:
+        """Whole-filter ``(kind, operand bytes, count)`` terms of the s-step
+        filter at ``degree`` (per shard): the first group ships the
+        single-width seed (``n_b`` columns), every later group
+        ``[w1 | w2]`` at twice the width in the same collective, so a2a
+        makes one single-width and ``⌈n/s⌉ − 1`` double-width
+        all-to-alls, and the compressed engine that pattern per round.
+        The port's :class:`~repro_torch.core.shards.ShardGroup` counts P
+        times these bytes (every shard's payload) and these counts of
+        calls."""
+        if self.sstep < 2:
+            raise ValueError("sstep_collectives needs a depth-s plan "
+                             "(comm_plan(..., sstep>=2))")
+        if self.n_row <= 1 or self.L == 0:
+            return ()
+        ng = self.n_groups(degree)
+        if comm == "a2a":
+            b1 = self.n_row * self.L * n_b * S_d
+            terms = [("all-to-all", b1, 1)]
+            if ng > 1:
+                terms.append(("all-to-all", 2 * b1, ng - 1))
+            return tuple(terms)
+        if comm != "compressed":
+            raise ValueError(f"unknown comm engine {comm!r}")
+        _, round_L = self.permute_schedule(schedule)
+        terms = []
+        for Lk in round_L:
+            terms.append(("collective-permute", Lk * n_b * S_d, 1))
+            if ng > 1:
+                terms.append(("collective-permute", 2 * Lk * n_b * S_d,
+                              ng - 1))
+        return tuple(terms)
+
 
 def _remote_cols(matrix, a: int, b: int, chunk: int = 2_000_000) -> np.ndarray:
     """Distinct columns outside [a, b) referenced by rows [a, b)."""
@@ -249,16 +314,21 @@ def comm_plan(matrix, n_row: int, *, d_pad: int | None = None,
     sizes. ``L == 0`` (a zero-halo partition) predicts zero bytes, which
     the engines realize exactly.
 
-    ``sstep > 1`` (the depth-s ghost-zone stats of the s-step filter) is
-    not ported yet and raises.
+    ``sstep > 1`` computes the depth-s ghost-zone stats instead of the
+    per-SpMV halo: the pair volumes are the positions the breadth-first
+    search of ``spmv.sstep_ghosts`` reaches (the pass ``build_sstep_ell``
+    runs, so predicted equals built), and :attr:`SpmvCommPlan.ghost_cum`
+    carries the per-depth redundant-work counts. The depth-s pass is
+    always exact; it warns when scored on a :class:`RowMap` planned at
+    another depth.
     """
     D = matrix.shape[0] if isinstance(matrix, CSR) else matrix.D
     sstep = int(sstep)
     if sstep < 1:
         raise ValueError(f"sstep must be >= 1, got {sstep}")
     if sstep > 1:
-        raise _not_ported(f"comm_plan(sstep={sstep}) (the s-step filter's "
-                          "ghost-zone plan)")
+        return _sstep_comm_plan(matrix, D, n_row, sstep, d_pad=d_pad,
+                                rowmap=rowmap)
     if rowmap is not None and not rowmap.identity:
         if rowmap.D != D:
             raise ValueError("rowmap.D does not match the matrix")
@@ -313,6 +383,70 @@ def comm_plan(matrix, n_row: int, *, d_pad: int | None = None,
         L = max(L, int(pair_counts[:, p].max()))
     return SpmvCommPlan(n_row, D, L, n_vc, True, d_pad,
                         pair_counts=pair_counts)
+
+
+def _sstep_comm_plan(matrix, D: int, n_row: int, sstep: int, *,
+                     d_pad: int | None, rowmap: RowMap | None
+                     ) -> SpmvCommPlan:
+    """Depth-s ghost-zone stats through ``build_sstep_ell``'s own
+    breadth-first search (``spmv.sstep_ghosts``) over the pattern in
+    position space (the reference's ``_sstep_comm_plan``,
+    ``repro/core/planner.py:445-505``)."""
+    import warnings
+
+    from .partition import _pattern_csr
+    from .spmv import sstep_ghosts
+
+    mapped = rowmap is not None and not rowmap.identity
+    if mapped and rowmap.D != D:
+        raise ValueError("rowmap.D does not match the matrix")
+    if mapped and int(getattr(rowmap, "sstep", 1)) != sstep:
+        warnings.warn(
+            f"comm_plan(sstep={sstep}) scored on a RowMap planned at "
+            f"sstep={getattr(rowmap, 'sstep', 1)} — its cuts were not "
+            f"optimized for the depth-{sstep} ghost volumes, so the "
+            f"redistribution/byte accounting may under-count; re-plan "
+            f"with plan_rowmap(..., sstep={sstep})",
+            UserWarning, stacklevel=3)
+    if n_row <= 1:
+        return SpmvCommPlan(1, D, 0, np.zeros(1, np.int64), True,
+                            rowmap.D_pad if mapped else d_pad,
+                            sstep=sstep, ghost_cum=(0,) * (sstep + 1),
+                            rowmap=rowmap)
+    indptr, cols = _pattern_csr(matrix)
+    if mapped:
+        R = rowmap.level_R(n_row)
+        pos = rowmap.pos
+        rows = np.repeat(np.arange(D, dtype=np.int64), np.diff(indptr))
+        prow, pcol = pos[rows], pos[cols]
+        order = np.lexsort((pcol, prow))
+        prow, pcol = prow[order], pcol[order]
+        counts = np.bincount(prow, minlength=n_row * R)
+        indptr_pos = np.concatenate([[0], np.cumsum(counts)])
+        cols_pos = pcol
+        pad = rowmap.D_pad
+    else:
+        R = (d_pad // n_row) if d_pad is not None else -(-D // n_row)
+        # the equal-rows cuts put row g at position g; pad rows are empty
+        indptr_pos = np.concatenate(
+            [indptr, np.full(n_row * R - D, indptr[-1], dtype=indptr.dtype)])
+        cols_pos = cols
+        pad = d_pad
+    ghosts = sstep_ghosts(indptr_pos, cols_pos, n_row, R, sstep)
+    n_vc = np.zeros(n_row, dtype=np.int64)
+    pair_counts = np.zeros((n_row, n_row), dtype=np.int64)
+    ghost_cum = np.zeros(sstep + 1, dtype=np.int64)
+    for p, (gpos, gdep) in enumerate(ghosts):
+        n_vc[p] = gpos.size
+        if gpos.size:
+            pair_counts[:, p] = np.bincount(gpos // R, minlength=n_row)
+        for d in range(1, sstep + 1):
+            ghost_cum[d] = max(ghost_cum[d], int((gdep <= d).sum()))
+    L = int(pair_counts.max()) if pair_counts.size else 0
+    return SpmvCommPlan(n_row, D, L, n_vc, True, pad,
+                        pair_counts=pair_counts, sstep=sstep,
+                        ghost_cum=tuple(int(g) for g in ghost_cum),
+                        rowmap=rowmap)
 
 
 def estimate_nnzr(matrix, probe_rows: int = 4096) -> float:
@@ -497,8 +631,16 @@ def plan_layout(matrix, n_devices: int, *, n_search: int,
     kernel's κ = 5 (``perf_model.fused_kernel_machine``). The axis
     defaults to off (``(False,)``).
 
-    ``sstep`` is the s-step axis; only ``(1,)`` is ported — an s > 1
-    value raises.
+    ``sstep`` widens the grid with the s-step ghost-zone depth of the
+    communication-avoiding filter (``spmv.make_sstep_cheb``). An s > 1
+    candidate replaces the per-SpMV halo by one depth-s exchange per s
+    steps: per iteration it pays ``(2·⌈n/s⌉ − 1)/n`` of the depth-s
+    exchange bytes (later groups ship ``[w1 | w2]``), ``⌈n/s⌉·rounds/n``
+    of the machine's per-round α, and a matrix-traffic term inflated by
+    the redundant ghost rows (``SpmvCommPlan.sstep_work_factor``), so
+    only α can make it win. s > 1 candidates are enumerated on the
+    default partition, where there is an exchange and the plan is exact,
+    without overlap (steps ≥ 1 of a group read the ghosts).
 
     ``n_vc_by_row`` maps n_row -> precomputed n_vc counts (on the
     equal-rows boundaries) and ``comm_plan_by_row`` maps n_row -> a full
@@ -537,8 +679,6 @@ def plan_layout(matrix, n_devices: int, *, n_search: int,
     for s in ssteps:
         if s < 1:
             raise ValueError(f"sstep values must be >= 1, got {s}")
-        if s > 1:
-            raise _not_ported(f"plan_layout(sstep={s}) (the s-step axis)")
     partitions: list[tuple[str, str]] = []
     for bal in dict.fromkeys(balance):
         if bal not in SPMV_BALANCES:
@@ -558,6 +698,7 @@ def plan_layout(matrix, n_devices: int, *, n_search: int,
 
     plans: dict[int, SpmvCommPlan] = dict(comm_plan_by_row or {})
     mapped_plans: dict[tuple[str, str, int], SpmvCommPlan] = {}
+    sstep_plans: dict[tuple[int, int], SpmvCommPlan] = {}  # (n_row, s>1)
     rowmaps: dict[tuple[str, str], RowMap] = {}
     pattern = None  # one pattern pass shared by every planned combo
     cands: list[Candidate] = []
@@ -669,34 +810,61 @@ def plan_layout(matrix, n_devices: int, *, n_search: int,
                     # schedule volume — never claim a compressed win the
                     # pattern hasn't proven
                     continue
-                moved = cp.moved_entries_per_device(eng, sch)
-                rounds = float(cp.rounds_per_exchange(eng, sch))
-                bytes_dev = cp.comm_bytes_per_device(eng, n_b, S_d, sch)
-                chi_eng = pm.engine_chi(moved, D, n_row)
-                kw = dict(D=D, N_p=n_row, n_b=n_b, chi=chi_eng,
-                          n_nzr=n_nzr, S_d=S_d)
-                for ov in sorted(set(overlap)):
-                    if ov and chi1 <= 0.0:
-                        continue  # overlap is a no-op without an exchange
-                    for kn in sorted(set(kernel)):
-                        mk = (pm.fused_kernel_machine(machine)
-                              if kn else machine)
-                        t_iter = (pm.cheb_iter_time_overlap(
-                                      mk, **kw, rounds=rounds)
-                                  if ov else pm.cheb_iter_time(
-                                      mk, **kw, rounds=rounds,
-                                      work_factor=1.0))
-                        cands.append(Candidate(
-                            layout=name, n_row=n_row, n_col=n_col,
-                            overlap=ov, comm=eng, schedule=sch,
-                            redistribute=n_col > 1,
-                            chi1=chi1, chi2=chim.chi2, chi_eng=chi_eng,
-                            t_iter=t_iter, t_redist=t_red,
-                            t_pass=degree * t_iter + 2.0 * t_red,
-                            comm_bytes_per_device=bytes_dev,
-                            balance=bal, reorder=ro, kernel=kn,
-                            rowmap=None if default_part else rowmap,
-                        ))
+                for s in ssteps:
+                    if s == 1:
+                        moved = cp.moved_entries_per_device(eng, sch)
+                        rounds = float(cp.rounds_per_exchange(eng, sch))
+                        wf = 1.0
+                        bytes_dev = cp.comm_bytes_per_device(eng, n_b,
+                                                             S_d, sch)
+                    else:
+                        # the s-step axis: default partition only (the
+                        # depth-s search needs the exact pattern; a planned
+                        # map would need re-planning at depth s), and only
+                        # where there is an exchange to avoid
+                        if not default_part or chi1 <= 0.0 or not cp.exact:
+                            continue
+                        if (n_row, s) not in sstep_plans:
+                            sstep_plans[(n_row, s)] = comm_plan(
+                                matrix, n_row, d_pad=d_pad, sstep=s)
+                        cps = sstep_plans[(n_row, s)]
+                        ng = cps.n_groups(degree)
+                        # bytes per iteration: one single-width and ng-1
+                        # double-width exchanges over the whole filter
+                        moved = (cps.moved_entries_per_device(eng, sch)
+                                 * (2 * ng - 1) / degree)
+                        rounds = (cps.rounds_per_exchange(eng, sch)
+                                  * ng / degree)
+                        wf = cps.sstep_work_factor()
+                        bytes_dev = int(round(moved * n_b * S_d))
+                    chi_eng = pm.engine_chi(moved, D, n_row)
+                    kw = dict(D=D, N_p=n_row, n_b=n_b, chi=chi_eng,
+                              n_nzr=n_nzr, S_d=S_d)
+                    for ov in sorted(set(overlap)):
+                        if ov and chi1 <= 0.0:
+                            continue  # overlap is a no-op without an exchange
+                        if ov and s > 1:
+                            continue  # steps >= 1 depend on the ghosts
+                        for kn in sorted(set(kernel)):
+                            mk = (pm.fused_kernel_machine(machine)
+                                  if kn else machine)
+                            t_iter = (pm.cheb_iter_time_overlap(
+                                          mk, **kw, rounds=rounds)
+                                      if ov else pm.cheb_iter_time(
+                                          mk, **kw, rounds=rounds,
+                                          work_factor=wf))
+                            cands.append(Candidate(
+                                layout=name, n_row=n_row, n_col=n_col,
+                                overlap=ov, comm=eng, schedule=sch,
+                                redistribute=n_col > 1,
+                                chi1=chi1, chi2=chim.chi2, chi_eng=chi_eng,
+                                t_iter=t_iter, t_redist=t_red,
+                                t_pass=degree * t_iter + 2.0 * t_red,
+                                comm_bytes_per_device=bytes_dev,
+                                balance=bal, reorder=ro, kernel=kn,
+                                sstep=s,
+                                rowmap=None if default_part else rowmap,
+                            ))
     if not cands:
         raise ValueError(
             f"no candidate survived for P={P}, n_search={n_search}, "
@@ -727,14 +895,17 @@ def auto_axes(cfg, D: int, P: int) -> dict:
     shards: its block width, the engine's padded equal-rows partition
     ``d_pad = ceil(D/P)·P`` (so that the scored χ and L are the built
     operator's), the reorders {none, ``cfg.spmv_reorder``}, the kernel
-    axis held at ``cfg.spmv_kernel`` and ``cfg.plan_mode``. The
+    axis held at ``cfg.spmv_kernel``, the depths {1, ``cfg.spmv_sstep``}
+    and ``cfg.plan_mode``. The
     reference widens the kernel axis to ``(False, cfg.spmv_kernel)``
     (``repro/core/filter_diag.py:235``); where the two tie, its
     tiebreak prefers ``kernel=False``, and ``--spmv-kernel`` would run
     the plain versions."""
     return dict(n_search=cfg.n_search, d_pad=-(-int(D) // P) * P,
                 reorder=tuple(dict.fromkeys(("none", cfg.spmv_reorder))),
-                kernel=(cfg.spmv_kernel,), plan_mode=cfg.plan_mode)
+                kernel=(cfg.spmv_kernel,),
+                sstep=tuple(dict.fromkeys((1, int(cfg.spmv_sstep)))),
+                plan_mode=cfg.plan_mode)
 
 
 def config_for(cfg, best: Candidate):

@@ -48,6 +48,14 @@ fused step hands its epilogue ``2a·y + 2b·w1 − w2`` to the last block's
 launch (the ``ell_gather_cheb`` entry); a comm-free operator (P = 1 or
 L = 0) runs the whole step per shard in the DIA kernel when
 ``ops.plan_dia`` accepts every shard (``spmv.py:1002-1027``).
+
+The s-step filter (:func:`build_sstep_ell`, :func:`make_sstep_cheb`; the
+reference's ``spmv.py:1195-1791``) extends each shard's block by its
+depth-s ghost zone, ``[R + G, W_i]`` for step i of a group: one exchange
+ships the ghosts (the previous group's last two steps, ``[w1 | w2]``),
+then s steps run on the extended blocks, each one kernel launch per
+shard, each row's products in its home shard's slot order, so a filter
+runs ⌈n/s⌉ exchanges and returns the s = 1 filter's bits.
 """
 from __future__ import annotations
 
@@ -61,13 +69,15 @@ from ..kernels import ops, plan, ref
 from ..kernels.plan import span_of
 from ..matrices.families import MatrixFamily
 from ..matrices.matfree import collect_row_entries
-from ..matrices.sparse import CSR
+from ..matrices.sparse import CSR, gather_row_entry_idx
 from .partition import RowMap
 from .shards import ShardGroup
 
 __all__ = ["DistEll", "NeighborPlan", "build_dist_ell",
            "make_spmv", "make_fused_cheb_step", "neighbor_schedule",
-           "value_dtype", "SPMV_COMM_ENGINES", "SPMV_SCHEDULES"]
+           "value_dtype", "SPMV_COMM_ENGINES", "SPMV_SCHEDULES",
+           "SstepEll", "SstepNeighbor", "build_sstep_ell", "make_sstep_cheb",
+           "sstep_ghosts"]
 
 #: Horizontal-layer communication engines of ``make_spmv``.
 SPMV_COMM_ENGINES = ("a2a", "compressed")
@@ -186,6 +196,39 @@ def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
+def _pack(mask, cols, vals, out_cols, out_vals, rebase: int = 0) -> None:
+    """Move the entries ``mask`` selects (``[rows, W]``) to the front of
+    their rows of ``out_cols/out_vals``, in slot order, their columns less
+    ``rebase``."""
+    rows, slots = np.nonzero(mask)
+    if not len(rows):
+        return
+    counts = np.bincount(rows, minlength=mask.shape[0])
+    out_slot = np.arange(len(rows)) - np.repeat(np.cumsum(counts) - counts,
+                                                counts)
+    out_cols[rows, out_slot] = cols[rows, slots] - rebase
+    out_vals[rows, out_slot] = vals[rows, slots]
+
+
+def _round_plan(pair_counts, send_idx: np.ndarray, schedule: str):
+    """``(perms, round_L, off_by_pair, send_nbr)`` of the compressed
+    exchange over ``pair_counts``: the rounds and their pads, each
+    scheduled pair's offset into the round-concatenated receive buffer
+    (−1: in no round) and ``send_nbr [P, max(H, 1)]``, the rows each
+    shard ships round by round (from ``send_idx [P, P, L]``)."""
+    perms, round_L = neighbor_schedule(pair_counts, schedule)
+    P = send_idx.shape[0]
+    off_by_pair = np.full((P, P), -1, dtype=np.int64)
+    send_nbr = np.zeros((P, max(int(sum(round_L)), 1)), dtype=np.int32)
+    H = 0
+    for perm, Lk in zip(perms, round_L):
+        for s, d in perm:
+            off_by_pair[s, d] = H
+            send_nbr[s, H:H + Lk] = send_idx[s, d, :Lk]
+        H += Lk
+    return perms, round_L, off_by_pair, send_nbr
+
+
 @dataclasses.dataclass
 class DistEll:
     """The distributed ELL operator over P row shards, on one device.
@@ -263,17 +306,9 @@ class DistEll:
         cols_halo = np.zeros((P, R, W_halo), dtype=cols.dtype)
         vals_halo = np.zeros((P, R, W_halo), dtype=vals.dtype)
         for p in range(P):
-            for mask, carr, varr, rebase in (
-                    (is_loc[p], cols_loc[p], vals_loc[p], 0),
-                    (is_halo[p], cols_halo[p], vals_halo[p], self.R)):
-                rows, slots = np.nonzero(mask)
-                if not len(rows):
-                    continue
-                counts = np.bincount(rows, minlength=R)
-                out_slot = np.arange(len(rows)) - np.repeat(
-                    np.cumsum(counts) - counts, counts)
-                carr[rows, out_slot] = cols[p][rows, slots] - rebase
-                varr[rows, out_slot] = vals[p][rows, slots]
+            _pack(is_loc[p], cols[p], vals[p], cols_loc[p], vals_loc[p])
+            _pack(is_halo[p], cols[p], vals[p], cols_halo[p], vals_halo[p],
+                  self.R)
         dev = self.device
         self.cols_loc = torch.as_tensor(cols_loc, device=dev)
         self.vals_loc = torch.as_tensor(vals_loc, device=dev)
@@ -283,21 +318,12 @@ class DistEll:
 
     # ------------------------------------------------- compressed engine --
 
-    def _round_offsets(self, schedule: str):
-        """``(perms, round_L, off_by_pair)``: the rounds, their pads, and
-        each scheduled pair's offset into the concatenated receive buffer
-        (−1: in no round)."""
+    def _round_plan(self, schedule: str):
+        """:func:`_round_plan` of the operator's pair volumes."""
         if self.pair_counts is None:
             raise ValueError("the compressed engine needs per-pair volumes; "
                              "build the operator with build_dist_ell")
-        perms, round_L = neighbor_schedule(self.pair_counts, schedule)
-        off_by_pair = np.full((self.P, self.P), -1, dtype=np.int64)
-        H = 0
-        for perm, Lk in zip(perms, round_L):
-            for s, d in perm:
-                off_by_pair[s, d] = H
-            H += Lk
-        return perms, round_L, off_by_pair
+        return _round_plan(self.pair_counts, _np(self.send_idx), schedule)
 
     def _rebase_halo(self, cols, vals, halo_mask_base, off_by_pair, base):
         """Re-base halo columns ``halo_mask_base + q·L + slot`` (the a2a
@@ -328,16 +354,7 @@ class DistEll:
         nplan = self.nbr.get(schedule)
         dev = self.device
         if nplan is None:
-            perms, round_L, off_by_pair = self._round_offsets(schedule)
-            P = self.P
-            send_idx = _np(self.send_idx)
-            H = int(sum(round_L))
-            send_nbr = np.zeros((P, max(H, 1)), dtype=np.int32)
-            off = 0
-            for perm, Lk in zip(perms, round_L):
-                for s, d in perm:
-                    send_nbr[s, off:off + Lk] = send_idx[s, d, :Lk]
-                off += Lk
+            perms, round_L, off_by_pair, send_nbr = self._round_plan(schedule)
             cols_nbr = self._rebase_halo(_np(self.cols), _np(self.vals),
                                          self.R, off_by_pair, self.R)
             nplan = NeighborPlan(
@@ -347,7 +364,7 @@ class DistEll:
             self.nbr[schedule] = nplan
         if split_halo and nplan.cols_halo_nbr is None:
             _, _, ch, vh = self.split()
-            _, _, off_by_pair = self._round_offsets(schedule)
+            off_by_pair = self._round_plan(schedule)[2]
             ch, vh = _np(ch), _np(vh)
             ch_nbr = (self._rebase_halo(ch, vh, 0, off_by_pair, 0)
                       if ch.shape[2] else ch)
@@ -380,14 +397,7 @@ def _build_halo_rounds(ch_nbr: np.ndarray, vh: np.ndarray,
         cr = np.zeros((P, R, Wr), dtype=np.int32)
         vr = np.zeros((P, R, Wr), dtype=vh.dtype)
         for p in range(P):
-            rows, slots = np.nonzero(m[p])
-            if not len(rows):
-                continue
-            counts = np.bincount(rows, minlength=R)
-            out_slot = np.arange(len(rows)) - np.repeat(
-                np.cumsum(counts) - counts, counts)
-            cr[p, rows, out_slot] = ch_nbr[p, rows, slots]
-            vr[p, rows, out_slot] = vh[p, rows, slots]
+            _pack(m[p], ch_nbr[p], vh[p], cr[p], vr[p])
         rounds.append((cr, vr))
     return rounds
 
@@ -815,3 +825,580 @@ def make_fused_cheb_step(ell: DistEll, *, group: ShardGroup | None = None,
 
     step.exchange, step.kind = eng.exchange, eng.kind
     return step
+
+
+# --------------------------------------------------------------------------
+# the s-step filter: depth-s ghost zones
+# --------------------------------------------------------------------------
+
+
+def sstep_ghosts(indptr: np.ndarray, cols: np.ndarray, P_row: int, R: int,
+                 s: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per-shard depth-``s`` ghost zones of a position-space pattern (the
+    port's copy of the reference's ``sstep_ghosts``,
+    ``repro/core/spmv.py:1195-1247``).
+
+    ``(indptr, cols)`` is a CSR pattern over the padded position space
+    ``[0, P_row·R)`` (pad positions have empty rows). For each shard p a
+    breadth-first search from its owned positions ``[p·R, (p+1)·R)``
+    collects every position first reached at depth d ∈ [1, s], the
+    reachability frontier of the pattern powers A^1 .. A^s. Returns, per
+    shard, ``(gpos, gdep)``: the ghost positions ascending (≡ by
+    (owner, position), owner = pos // R being monotone) and each ghost's
+    depth. The operator (:func:`build_sstep_ell`) and the planner's
+    ``comm_plan(sstep=s)`` share it, so the predicted volumes are the
+    built ones."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    D_pos = P_row * R
+    assert len(indptr) == D_pos + 1, "pattern must cover the padded space"
+    out = []
+    for p in range(P_row):
+        seen = np.zeros(D_pos, dtype=bool)
+        seen[p * R:(p + 1) * R] = True
+        frontier = np.arange(p * R, (p + 1) * R, dtype=np.int64)
+        gpos_parts: list[np.ndarray] = []
+        gdep_parts: list[np.ndarray] = []
+        for d in range(1, s + 1):
+            if not frontier.size:
+                break
+            gather, _ = gather_row_entry_idx(indptr, frontier)
+            nxt = np.unique(cols[gather])
+            new = nxt[~seen[nxt]]
+            if not new.size:
+                break
+            seen[new] = True
+            gpos_parts.append(new)
+            gdep_parts.append(np.full(new.size, d, dtype=np.int64))
+            frontier = new
+        if gpos_parts:
+            gpos = np.concatenate(gpos_parts)
+            gdep = np.concatenate(gdep_parts)
+            order = np.argsort(gpos, kind="stable")
+            gpos, gdep = gpos[order], gdep[order]
+        else:
+            gpos = np.zeros(0, dtype=np.int64)
+            gdep = np.zeros(0, dtype=np.int64)
+        out.append((gpos, gdep))
+    return out
+
+
+@dataclasses.dataclass
+class SstepNeighbor:
+    """The compressed engine's schedule of the depth-s ghost exchange (the
+    reference's ``SstepNeighbor``): the rounds of
+    :func:`neighbor_schedule` over the depth-s pair volumes, ``send_nbr
+    [P, max(H, 1)]`` the local rows each shard ships round by round, and
+    ``gather [P, G]`` each ghost slot's row of the compact
+    round-concatenated receive buffer (``off_by_pair[owner] + rank``), so
+    the gathered ghost block equals the a2a engine's."""
+
+    perms: tuple
+    round_L: tuple
+    send_nbr: torch.Tensor
+    gather: torch.Tensor
+
+    @property
+    def H(self) -> int:
+        return int(sum(self.round_L))
+
+
+@dataclasses.dataclass
+class SstepEll:
+    """The depth-s ghost-zone operator over P row shards (the reference's
+    ``SstepEll``, ``repro/core/spmv.py:1272-1427``), on one device.
+
+    Shard p's extended address space is ``[0, R + G)``: the owned rows at
+    their local offsets, ghost j (of its ascending-position ghost list)
+    at ``R + j`` (``G`` the most ghosts of a shard; a shard's pad slots
+    are never referenced). Step i of a group (from 0) holds the rows whose
+    outputs are still needed, the owned rows and the ghosts at depth
+    ≤ s−1−i; the deeper ghost rows are rows with no entries. Each row's
+    entries are sorted by ``(owner(col) != owner(row), owner(col),
+    position(col))``: on owned rows that is :class:`DistEll`'s slot
+    order, on a ghost row its home shard's, so every step adds the same
+    products in the same order as the s = 1 engines.
+
+    ``steps[i] = (cols, vals)`` ``[P, R+G, W_i]`` tensors; ``send_idx
+    [P, P, L]`` and ``gather_a2a [P, G]`` (into the a2a engine's ``[P·L]``
+    receive buffer) the one exchange that serves all s steps of a group.
+    ``n_vc``, ``pair_counts`` (the depth-s volumes), ``ghost_cum`` (the
+    most ghosts of a shard at depth ≤ d), ``ghost_owner`` and
+    ``ghost_rank`` are host arrays. The split-phase form of step 0
+    (:meth:`split`) and the neighbour plans are built on demand and
+    cached."""
+
+    steps: tuple
+    send_idx: torch.Tensor
+    gather_a2a: torch.Tensor
+    R: int
+    G: int
+    L: int
+    P: int
+    D: int
+    s: int
+    n_vc: np.ndarray | None = None
+    pair_counts: np.ndarray | None = None
+    ghost_cum: tuple | None = None
+    ghost_owner: np.ndarray | None = None
+    ghost_rank: np.ndarray | None = None
+    span: int = 0
+    cols_loc: torch.Tensor | None = None
+    vals_loc: torch.Tensor | None = None
+    cols_post: torch.Tensor | None = None
+    vals_post: torch.Tensor | None = None
+    nbr: dict | None = None
+    rowmap: RowMap | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.steps[0][1].device
+
+    @property
+    def D_pad(self) -> int:
+        return self.P * self.R
+
+    def n_groups(self, degree: int) -> int:
+        """⌈degree / s⌉ exchanges for a degree-term filter."""
+        return -(-int(degree) // self.s)
+
+    def split(self):
+        """``(cols_loc, vals_loc, cols_post, vals_post)``: step 0 split for
+        the split-phase engines. ``[P, R, W_loc]`` holds the owned rows'
+        local entries (contracted while the exchange runs),
+        ``[P, R+G, W_post]`` the rest, the owned rows' ghost entries and
+        the whole ghost rows, contracted afterwards on the same
+        accumulator, so each row's summand order is unchanged; cached."""
+        if self.cols_loc is not None:
+            return self.cols_loc, self.vals_loc, self.cols_post, self.vals_post
+        cols, vals = _np(self.steps[0][0]), _np(self.steps[0][1])
+        Pn, RG, W = cols.shape
+        R = self.R
+        stored = vals != 0
+        own_row = np.zeros((Pn, RG, 1), dtype=bool)
+        own_row[:, :R, :] = True
+        pre = stored & own_row & (cols < R)
+        post = stored & ~pre
+        W_loc = max(int(pre.sum(axis=2).max()) if W else 0, 1)
+        W_post = int(post.sum(axis=2).max()) if W else 0
+        cols_loc = np.zeros((Pn, R, W_loc), dtype=np.int32)
+        vals_loc = np.zeros((Pn, R, W_loc), dtype=vals.dtype)
+        cols_post = np.zeros((Pn, RG, W_post), dtype=np.int32)
+        vals_post = np.zeros((Pn, RG, W_post), dtype=vals.dtype)
+        for p in range(Pn):
+            _pack(pre[p, :R], cols[p, :R], vals[p, :R], cols_loc[p],
+                  vals_loc[p])
+            _pack(post[p], cols[p], vals[p], cols_post[p], vals_post[p])
+        dev = self.device
+        self.cols_loc, self.vals_loc, self.cols_post, self.vals_post = (
+            torch.as_tensor(a, device=dev)
+            for a in (cols_loc, vals_loc, cols_post, vals_post))
+        return self.cols_loc, self.vals_loc, self.cols_post, self.vals_post
+
+    def neighbor_plan(self, schedule: str = "cyclic") -> SstepNeighbor:
+        """The compressed engine's rounds over the depth-s pair volumes,
+        cached per scheduler."""
+        if self.nbr is None:
+            self.nbr = {}
+        plan_ = self.nbr.get(schedule)
+        if plan_ is not None:
+            return plan_
+        if self.pair_counts is None:
+            raise ValueError("compressed s-step engine needs per-pair "
+                             "volumes (pair_counts=None)")
+        perms, round_L, off_by_pair, send_nbr = _round_plan(
+            self.pair_counts, _np(self.send_idx), schedule)
+        gather = np.zeros((self.P, self.G), dtype=np.int32)
+        for p in range(self.P):
+            ng = int(self.n_vc[p])
+            if ng:
+                own = self.ghost_owner[p, :ng]
+                offg = off_by_pair[own, p]
+                assert (offg >= 0).all(), "ghost with unscheduled sender"
+                gather[p, :ng] = (offg + self.ghost_rank[p, :ng]
+                                  ).astype(np.int32)
+        dev = self.device
+        plan_ = SstepNeighbor(perms=perms, round_L=round_L,
+                              send_nbr=torch.as_tensor(send_nbr, device=dev),
+                              gather=torch.as_tensor(gather, device=dev))
+        self.nbr[schedule] = plan_
+        return plan_
+
+    def as_dist_ell(self) -> DistEll:
+        """The s = 1 round trip: the depth-1 operator in
+        :class:`DistEll`'s halo addressing (``R + owner·L + rank``), equal
+        to :func:`build_dist_ell`'s by construction."""
+        if self.s != 1:
+            raise ValueError("as_dist_ell requires s == 1")
+        cols = np.array(_np(self.steps[0][0])[:, :self.R, :], dtype=np.int32)
+        vals = _np(self.steps[0][1])[:, :self.R, :]
+        for p in range(self.P):
+            m = cols[p] >= self.R
+            if m.any():
+                j = cols[p][m] - self.R
+                cols[p][m] = (self.R + self.ghost_owner[p, j] * self.L
+                              + self.ghost_rank[p, j]).astype(np.int32)
+        dev = self.device
+        return DistEll(cols=torch.as_tensor(cols, device=dev),
+                       vals=torch.as_tensor(np.ascontiguousarray(vals),
+                                            device=dev),
+                       send_idx=self.send_idx, R=self.R, L=self.L, P=self.P,
+                       D=self.D, n_vc=self.n_vc, pair_counts=self.pair_counts,
+                       span=self.span, rowmap=self.rowmap)
+
+
+def build_sstep_ell(matrix: MatrixFamily | CSR, P_row: int, sstep: int,
+                    dtype=None, d_pad: int | None = None,
+                    split_halo: bool = False, rowmap=None,
+                    device=None) -> SstepEll:
+    """Build the depth-``sstep`` ghost-zone operator of ``matrix`` for
+    ``P_row`` row shards (the reference's ``build_sstep_ell``,
+    ``repro/core/spmv.py:1429-1598``, its arithmetic and sort keys
+    unchanged), in ``dtype`` (promoted as :func:`value_dtype` promotes),
+    on ``device`` (the card unless ``"cpu"`` is given).
+
+    The breadth-first search of :func:`sstep_ghosts` collects each
+    shard's depth-s ghosts; the exchange plan ships them in one
+    collective per group of s steps, and the per-step ELL blocks over the
+    extended addresses ``[0, R + G)`` apply the operator to the owned
+    rows and the ghosts still needed. ``sstep=1`` gives
+    :func:`build_dist_ell`'s operator (:meth:`SstepEll.as_dist_ell`). The
+    rows are placed by ``rowmap`` as :func:`build_dist_ell` places them
+    (the search runs in position space); ``split_halo`` builds the
+    split-phase form now."""
+    device = resolve_device(device)
+    s = int(sstep)
+    if s < 1:
+        raise ValueError(f"sstep must be >= 1 (got {sstep})")
+    P = int(P_row)
+    D = matrix.shape[0] if isinstance(matrix, CSR) else matrix.D
+    if rowmap is None:
+        rowmap = RowMap.rows(D, P, d_pad)
+    elif rowmap.D != D:
+        raise ValueError("rowmap.D does not match the matrix")
+    elif d_pad is not None and d_pad != rowmap.D_pad:
+        raise ValueError(f"d_pad={d_pad} conflicts with the rowmap's "
+                         f"D_pad={rowmap.D_pad}")
+    R = rowmap.level_R(P)
+    D_pos = P * R
+    all_rows = np.arange(D, dtype=np.int64)
+    rows, cols, vals = (matrix.row_entries(all_rows)
+                        if isinstance(matrix, CSR)
+                        else collect_row_entries(matrix, all_rows))
+    pos = rowmap.pos
+    rows = pos[np.asarray(rows, dtype=np.int64)]
+    cols = pos[np.asarray(cols, dtype=np.int64)]
+    vals = np.asarray(vals)
+    nz = vals != 0
+    span = span_of(rows[nz], cols[nz])
+    # stable (position-row, position-col) sort: duplicate entries keep
+    # their fetch order, as build_dist_ell's per-shard sort keeps them
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(D_pos + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(rows, minlength=D_pos))
+
+    ghosts = sstep_ghosts(indptr, cols, P, R, s)
+    n_vc = np.array([g.size for g, _ in ghosts], dtype=np.int64)
+    G = int(n_vc.max()) if len(n_vc) else 0
+
+    # the depth-s exchange plan: true pair volumes, each pair's slots in
+    # ascending position order (DistEll's need-set order at s = 1)
+    pair_counts = np.zeros((P, P), dtype=np.int64)
+    for p, (gpos, _) in enumerate(ghosts):
+        if gpos.size:
+            pair_counts[:, p] = np.bincount(gpos // R, minlength=P)
+    L = int(pair_counts.max()) if pair_counts.size else 0
+    send_idx = np.zeros((P, P, L), dtype=np.int32)
+    ghost_owner = np.zeros((P, G), dtype=np.int64)
+    ghost_rank = np.zeros((P, G), dtype=np.int64)
+    for p, (gpos, _) in enumerate(ghosts):
+        if not gpos.size:
+            continue
+        own = gpos // R
+        starts = np.searchsorted(own, np.arange(P))
+        rank = np.arange(gpos.size) - starts[own]
+        for q in np.unique(own):
+            m = own == q
+            send_idx[int(q), p, :int(m.sum())] = (gpos[m] - int(q) * R
+                                                  ).astype(np.int32)
+        ghost_owner[p, :gpos.size] = own
+        ghost_rank[p, :gpos.size] = rank
+    gather_a2a = (ghost_owner * L + ghost_rank).astype(np.int32)
+
+    cum = np.zeros((max(P, 1), s + 1), dtype=np.int64)
+    for p, (_, gdep) in enumerate(ghosts):
+        for d in range(1, s + 1):
+            cum[p, d] = int((gdep <= d).sum())
+    ghost_cum = tuple(int(v) for v in cum.max(axis=0))
+
+    # each shard's entries of every row that is an output of some step
+    # (owned rows and ghosts at depth <= s-1), each row's entries sorted
+    # by the (owner != row owner, owner, position) key
+    shard_data = []
+    for p, (gpos, gdep) in enumerate(ghosts):
+        inc = gdep <= s - 1
+        inc_pos = np.concatenate([np.arange(p * R, (p + 1) * R,
+                                            dtype=np.int64), gpos[inc]])
+        inc_ext = np.concatenate([np.arange(R, dtype=np.int64),
+                                  R + np.nonzero(inc)[0]])
+        inc_owner = np.concatenate([np.full(R, p, dtype=np.int64),
+                                    gpos[inc] // R])
+        inc_depth = np.concatenate([np.zeros(R, dtype=np.int64), gdep[inc]])
+        gather, counts = gather_row_entry_idx(indptr, inc_pos)
+        e_cols = cols[gather]
+        e_vals = vals[gather]
+        e_row = np.repeat(inc_ext, counts)
+        e_rowner = np.repeat(inc_owner, counts)
+        e_depth = np.repeat(inc_depth, counts)
+        e_own = e_cols // R
+        local_m = e_own == p
+        e_addr = np.empty(e_cols.size, dtype=np.int64)
+        e_addr[local_m] = e_cols[local_m] - p * R
+        if (~local_m).any():
+            rc = e_cols[~local_m]
+            idx = np.searchsorted(gpos, rc)
+            ok = (idx < gpos.size) & (gpos[np.minimum(idx, max(gpos.size - 1,
+                                                               0))] == rc)
+            if not ok.all():
+                raise AssertionError("s-step BFS closure violated: an "
+                                     "output row references a position "
+                                     "outside the depth-s ghost zone")
+            e_addr[~local_m] = R + idx
+        remote_flag = (e_own != e_rowner).astype(np.int64)
+        e_order = np.lexsort((e_cols, e_own, remote_flag, e_row))
+        e_row = e_row[e_order]
+        e_addr = e_addr[e_order]
+        e_vals = e_vals[e_order]
+        e_depth = e_depth[e_order]
+        rcounts = np.bincount(e_row, minlength=R + G)
+        slot = np.arange(e_row.size) - np.repeat(
+            np.cumsum(rcounts) - rcounts, rcounts)
+        shard_data.append((e_row, e_addr, e_vals, e_depth, slot))
+
+    vdt = value_dtype(dtype if dtype is not None else vals.dtype,
+                      np.iscomplexobj(vals))
+    steps = []
+    for i in range(s):
+        lim = s - 1 - i
+        W_i = 0
+        for e_row, e_addr, e_vals, e_depth, slot in shard_data:
+            m = e_depth <= lim
+            if m.any():
+                W_i = max(W_i, int(slot[m].max()) + 1)
+        ci = np.zeros((P, R + G, W_i), dtype=np.int32)
+        vi = np.zeros((P, R + G, W_i), dtype=vdt)
+        for p, (e_row, e_addr, e_vals, e_depth, slot) in enumerate(
+                shard_data):
+            m = e_depth <= lim
+            ci[p, e_row[m], slot[m]] = e_addr[m]
+            vi[p, e_row[m], slot[m]] = e_vals[m].astype(vdt)
+        steps.append((torch.as_tensor(ci, device=device),
+                      torch.as_tensor(vi, device=device)))
+
+    sell = SstepEll(
+        steps=tuple(steps),
+        send_idx=torch.as_tensor(send_idx, device=device),
+        gather_a2a=torch.as_tensor(gather_a2a, device=device),
+        R=R, G=G, L=L, P=P, D=D, s=s, n_vc=n_vc, pair_counts=pair_counts,
+        ghost_cum=ghost_cum, ghost_owner=ghost_owner, ghost_rank=ghost_rank,
+        span=span, rowmap=rowmap)
+    if split_halo:
+        sell.split()
+    return sell
+
+
+class _SstepGroup:
+    """The s-step filter's group applier over a :class:`ShardGroup` (the
+    port's counterpart of the reference's ``_build_sstep_group``,
+    ``repro/core/spmv.py:1601-1757``): one depth-s ghost exchange, then
+    up to s recurrence steps on the extended blocks ``[P, R+G, n_b]``.
+
+    The blocks of every step (and, with ``overlap``, step 0's split) are
+    built once, with their compact forms for the kernel. The first group
+    of a filter ships ``V`` (width n_b); a later one ships ``[w1 | w2]``
+    (width 2·n_b) in the same collective. With ``overlap`` the exchange
+    runs on the group's side stream while step 0's local prefix
+    contracts; later steps read the ghosts and cannot overlap."""
+
+    def __init__(self, group: ShardGroup, sell: SstepEll, *,
+                 use_kernel: bool, overlap: bool, comm: str, schedule: str):
+        self.group, self.sell, self.use_kernel = group, sell, use_kernel
+        self.comm = comm
+        P, G = sell.P, sell.G
+        self.has_halo = P > 1 and G > 0
+        # the split-phase form needs an exchange to hide
+        self.overlap = overlap and self.has_halo
+        self.kind = (("a2a" if comm == "a2a" else f"compressed-{schedule}")
+                     + ("-overlap" if overlap else "") + f"+s{sell.s}")
+        dev = sell.device
+        if comm == "compressed":
+            nbrp = sell.neighbor_plan(schedule)
+            self.X = nbrp.H
+            # each round's permutation and send rows (views made once, so
+            # the group's index cache keys on them)
+            self.ends = [0] + [int(e) for e in np.cumsum(nbrp.round_L)]
+            self.rounds = [(perm, nbrp.send_nbr[:, a:b])
+                           for perm, a, b in zip(nbrp.perms, self.ends,
+                                                 self.ends[1:])]
+            gather = nbrp.gather
+        else:
+            self.X = P * sell.L
+            gather = sell.gather_a2a
+        # ghost j of shard p is row p·X + gather[p, j] of the stacked
+        # receive buffers
+        self.ghost_idx = (gather.to(torch.int64) + self.X * torch.arange(
+            P, device=dev, dtype=torch.int64)[:, None]).reshape(-1)
+        self.blocks = [None if (i == 0 and self.overlap)
+                       else _block(c, v, use_kernel)
+                       for i, (c, v) in enumerate(sell.steps)]
+        if self.overlap:
+            cl, vl, cp, vp = sell.split()
+            self.local = _block(cl, vl, use_kernel)
+            self.post = _block(cp, vp, use_kernel)
+
+    def _exchange_into(self, payload, buf, ghosts):
+        """The depth-s exchange of ``payload [P·R, W]`` into the receive
+        buffers ``buf [P, X, W]``, then each shard's ghosts into
+        ``ghosts [P·G, W]`` (both allocated by the caller)."""
+        g = self.group
+        if self.comm == "a2a":
+            g.all_to_all(payload, self.sell.send_idx, out=buf)
+        else:
+            for k, (perm, rows) in enumerate(self.rounds):
+                a = self.ends[k]
+                g.gather_ppermute(payload, rows, perm, key=k,
+                                  out=buf[:, a:a + rows.shape[1]])
+        torch.index_select(buf.view(-1, buf.shape[2]), 0, self.ghost_idx,
+                           out=ghosts)
+
+    def _contract(self, blk: _Block, x, y0, epilogue, kernel: bool, out=None):
+        """``y0 + A·x`` of every shard's part of ``blk`` (``x [P, Rx, n_b]``,
+        ``y0`` and the epilogue's blocks ``[P, rows, n_b]``), one kernel
+        launch per shard into ``out``, or the plain version at once."""
+        if not kernel:
+            return _contract_plain(blk, x, y0, epilogue)
+        for p in range(self.sell.P):
+            ep = (None if epilogue is None else
+                  (epilogue[0][p], epilogue[1][p], epilogue[2], epilogue[3]))
+            _contract(blk, p, x[p], None if y0 is None else y0[p], ep, out[p])
+        return out
+
+    def __call__(self, n_steps: int, first: bool, carry, coeffs, emit):
+        """Run one group of ``n_steps`` steps. ``carry`` is ``V [P·R, n_b]``
+        for the first group of a filter, else the previous group's last
+        two step blocks ``(w1e, w2e)`` (their ghost rows are overwritten
+        here). ``coeffs = (a, b, alpha, beta)``: the first step is
+        ``a·y + b·w1`` (``a, b`` rounded as ``chebyshev_filter`` rounds
+        them), every later one ``2·alpha·y + 2·beta·w1 − w2``. ``emit`` is
+        called with each step's owned rows ``[P, R, n_b]`` in order.
+        Returns the carry of the next group."""
+        sell, g = self.sell, self.group
+        P, R, G = sell.P, sell.R, sell.G
+        a, b, alpha, beta = coeffs
+        if first:
+            V = carry
+            if V.shape[0] != P * R:
+                raise ValueError(f"V has {V.shape[0]} rows, the operator "
+                                 f"{P} shards of {R}")
+            nb = V.shape[1]
+            payload = V
+            w1e = V.new_empty((P, R + G, nb))
+            w1e[:, :R] = V.view(P, R, nb)
+            w2e = None
+        else:
+            w1e, w2e = carry
+            nb = w1e.shape[2]
+            # [w1 | w2] in one collective, twice the width
+            payload = torch.cat([w1e[:, :R], w2e[:, :R]], dim=2).view(
+                P * R, 2 * nb)
+        kernel = self.use_kernel and payload.device.type == "cuda"
+        W = payload.shape[1]
+        pend, buf, ghosts = None, None, None
+        if self.has_halo:
+            buf = payload.new_empty((P, self.X, W))
+            ghosts = payload.new_empty((P * G, W))
+            if self.overlap:
+                pend = g.start(lambda: self._exchange_into(payload, buf,
+                                                           ghosts))
+            else:
+                self._exchange_into(payload, buf, ghosts)
+
+        def fill_ghosts():
+            if ghosts is None:
+                w1e[:, R:] = 0
+                if w2e is not None:
+                    w2e[:, R:] = 0
+                return
+            gh = ghosts.view(P, G, W)
+            w1e[:, R:] = gh[:, :, :nb]
+            if w2e is not None:
+                w2e[:, R:] = gh[:, :, nb:]
+
+        epi = None if first else (w1e, w2e, alpha, beta)
+        if self.overlap:
+            # the local prefix contracts while the exchange is in flight
+            y = w1e.new_empty((P, R + G, nb))
+            if kernel:
+                self._contract(self.local, w1e[:, :R], None, None, True,
+                               out=y[:, :R])
+            else:
+                y[:, :R] = self._contract(self.local, w1e[:, :R], None, None,
+                                          False)
+            y[:, R:] = 0
+            g.wait(pend)
+            fill_ghosts()
+            y = self._contract(self.post, w1e, y, epi, kernel, out=y)
+        else:
+            fill_ghosts()
+            y = self._contract(self.blocks[0], w1e, None, epi, kernel,
+                               out=w1e.new_empty(w1e.shape) if kernel
+                               else None)
+        del payload, buf, ghosts
+        t = a * y + b * w1e if first else y
+        del y
+        for i in range(n_steps):
+            if i:
+                t = self._contract(self.blocks[i], w1e, None,
+                                   (w1e, w2e, alpha, beta), kernel,
+                                   out=w1e.new_empty(w1e.shape) if kernel
+                                   else None)
+            emit(t[:, :R])
+            w2e, w1e = w1e, t
+        return w1e, w2e
+
+
+def make_sstep_cheb(sell: SstepEll, *, group: ShardGroup | None = None,
+                    use_kernel: bool = False, overlap: bool = False,
+                    comm: str = "a2a", schedule: str = "cyclic"):
+    """The s-step (communication-avoiding) Chebyshev filter
+    (``spmv_sstep = sell.s``, the reference's ``make_sstep_cheb``,
+    ``repro/core/spmv.py:1760-1791``): ``apply(V, mu, alpha, beta)`` runs
+    a degree-n filter in ⌈n/s⌉ depth-s ghost exchanges through the
+    engine ``comm``/``schedule``/``overlap`` names, over ``group`` (built
+    when omitted; it counts each exchange's bytes and calls). With
+    ``use_kernel`` every step of every group is one launch of the CUDA
+    ELL kernel per shard (its epilogue entry after the filter's first
+    step); otherwise the plain version runs. The result equals
+    :func:`~repro_torch.core.chebyshev.chebyshev_filter` through the
+    s = 1 engine with the same fused step bit for bit. ``apply.kind``
+    names the engine (``"...+s3"``), ``apply.group`` the shard group."""
+    from .chebyshev import chebyshev_filter_sstep
+
+    if sell.s < 2:
+        raise ValueError("make_sstep_cheb requires s >= 2; s = 1 is the "
+                         "make_spmv / make_fused_cheb_step engine")
+    _validate_engine(comm, schedule)
+    if group is None:
+        group = ShardGroup(sell.P, sell.device)
+    if group.P != sell.P or group.device != sell.device:
+        raise ValueError(f"{group} does not hold the operator's {sell.P} "
+                         f"shards on {sell.device}")
+    run = _SstepGroup(group, sell, use_kernel=use_kernel, overlap=overlap,
+                      comm=comm, schedule=schedule)
+
+    def apply(V, mu, alpha, beta):
+        return chebyshev_filter_sstep(run, mu, alpha, beta, V, sell.s)
+
+    apply.kind, apply.group = run.kind, group
+    return apply

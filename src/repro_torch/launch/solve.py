@@ -23,6 +23,12 @@ every filter pass (``--redist-impl``). ``--spmv-balance commvol`` and
 whole pattern, ``sampled`` plans from a seeded row subsample, ``auto``
 samples above the exact planner's gate).
 
+``--spmv-sstep s`` runs every filter as the s-step filter: one depth-s
+ghost exchange per s recurrence steps, ⌈degree/s⌉ a filter instead of
+``degree`` (``core/spmv.py::make_sstep_cheb``; the same eigenvalues bit
+for bit), e.g. the RoadNet line above with ``--n-row 8 --spmv-comm
+compressed --spmv-sstep 3``.
+
 ``--layout auto`` hands the choice to the χ-driven planner
 (``core/planner.py``): over every ``n_row × n_col`` split of ``P =
 --n-row · --n-col`` shards it ranks the layouts, the halo engines
@@ -32,7 +38,9 @@ overlap) and the row partitions (equal rows, ``commvol``; an explicit
 ``--machine`` (a builtin name or a JSON written by ``python -m
 repro_torch.launch.dryrun --fit-machine PATH``; default ``h100-1card``),
 prints the ranking and runs the best candidate on its split and row map.
-``--spmv-kernel`` stays as given.
+``--spmv-kernel`` stays as given; ``--spmv-sstep s`` adds the depth s to
+the ranking (the ``+s{s}`` candidates, on the equal-rows partition
+without overlap) beside s = 1.
 
 Every family of ``repro_torch.matrices`` is taken: Hubbard, SpinChainXXZ,
 Exciton and TopIns (complex; the fused step runs the DIA kernel where the
@@ -42,7 +50,8 @@ ELL kernel and the epilogue).
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. Prints the converged count, iterations, SpMVs, the layout, the
 redistributions and the bytes the shards' collectives moved at each
-level, the eigenvalues and the launches of each CUDA kernel.
+level, the filter's halo exchanges, the eigenvalues and the launches of
+each CUDA kernel.
 """
 from __future__ import annotations
 
@@ -142,6 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "the operator has a DIA form (<= 64 diagonals), "
                          "else in the ELL kernel and a torch epilogue; on "
                          "the CPU the kernels' plain versions run")
+    ap.add_argument("--spmv-sstep", type=int, default=1,
+                    help="s-step filter: one depth-s ghost exchange per s "
+                         "Chebyshev steps, ceil(degree/s) exchanges a "
+                         "filter (1: one exchange per step); with --layout "
+                         "auto the planner ranks depths 1 and s")
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"],
                     help="working precision; a complex family (Exciton, "
@@ -159,7 +173,8 @@ def config_from_args(args) -> FDConfig:
                     spmv_overlap=args.spmv_overlap, spmv_comm=args.spmv_comm,
                     spmv_schedule=args.spmv_schedule,
                     spmv_balance=args.spmv_balance,
-                    spmv_reorder=args.spmv_reorder, plan_mode=args.plan_mode,
+                    spmv_reorder=args.spmv_reorder,
+                    spmv_sstep=args.spmv_sstep, plan_mode=args.plan_mode,
                     redist_impl=args.redist_impl, dtype=args.dtype,
                     ortho=args.ortho)
 
@@ -220,6 +235,11 @@ def main(argv=None, verbose: bool = True):
                   f"L={e['L']}; device copies between the shards' rows): "
                   "bytes " + ", ".join(f"{k}={e['bytes'][k]}"
                                        for k in halo + ("psum",)))
+    if solver.N_row > 1:
+        print(f"filter: {ex['filter_engine']} over {solver.N_row} row shards, "
+              f"{ex['filter_exchanges']} halo exchanges in {res.iterations} "
+              f"filters x {solver.N_col} bundles (depth {ex['sstep']}: "
+              f"ceil(degree/{ex['sstep']}) a filter)")
     print("eigenvalues:", np.array2string(res.eigenvalues, precision=10))
     print("kernel launches:", ", ".join(f"{k}={v}"
                                         for k, v in build.launches.items()))

@@ -630,3 +630,62 @@ def test_auto_solve_on_the_card_equals_the_cpu(card):
                                atol=1e-9)
     assert launches["ell_gather"] > 0 and launches["ell_gather_cheb"] > 0
     assert launches["cheb_dia"] == 0
+
+
+SSTEP_ENGINES = [("a2a", "cyclic", False), ("compressed", "cyclic", False),
+                 ("compressed", "cyclic", True),
+                 ("compressed", "matching", False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128,
+                                   torch.complex64])
+@pytest.mark.parametrize("s", [2, 3])
+def test_sstep_filter_on_the_card_bitwise(card, s, dtype):
+    """The s-step filter on RoadNet(4000) at P = 4, kernels on, through
+    each engine at degrees 3 and 8: bit-equal to the s = 1 filter (the
+    fused step) through the same engine, and to the same filter from the
+    plain versions on the card (complex64: to 1e-5 of max|Y|, as the
+    kernel is held in that dtype); every step one ELL launch per shard,
+    the DIA kernel never."""
+    from repro_torch.core import (ShardGroup, build_dist_ell,
+                                  build_sstep_ell, chebyshev_filter,
+                                  make_fused_cheb_step, make_spmv,
+                                  make_sstep_cheb)
+
+    mat, P = RoadNet(n=4000, w=2, m=256, k=4), 4
+    name = str(dtype).split(".")[1]
+    ell = build_dist_ell(mat, P, dtype=name, split_halo=True, device=card)
+    sell = build_sstep_ell(mat, P, s, dtype=name, split_halo=True,
+                           device=card)
+    g = torch.Generator(device=card).manual_seed(s)
+    V = torch.randn((ell.D_pad, 7), generator=g, device=card, dtype=dtype)
+    V[ell.D:] = 0
+    for degree in (3, 8):
+        mu = np.random.default_rng(degree).standard_normal(degree + 1)
+        for comm, sched, ov in SSTEP_ENGINES:
+            kw = dict(overlap=ov, comm=comm, schedule=sched)
+            g1 = ShardGroup(P, card)
+            Y1 = chebyshev_filter(
+                make_spmv(ell, group=g1, use_kernel=True, pipeline=False,
+                          **kw), mu, 0.07, -0.2, V,
+                fused_step=make_fused_cheb_step(ell, group=g1,
+                                                use_kernel=True,
+                                                pipeline=False, **kw))
+            n0 = dict(build.launches)
+            Y = make_sstep_cheb(sell, group=ShardGroup(P, card),
+                                use_kernel=True, **kw)(V, mu, 0.07, -0.2)
+            torch.cuda.synchronize()
+            launched = {k: build.launches[k] - n0[k] for k in n0}
+            Yp = make_sstep_cheb(sell, group=ShardGroup(P, card),
+                                 **kw)(V, mu, 0.07, -0.2)
+            torch.cuda.synchronize()
+            if dtype == torch.complex64:
+                assert (Y - Yp).abs().max() <= 1e-5 * Yp.abs().max()
+            else:
+                assert torch.equal(Y, Yp), (degree, comm, sched, ov)
+            assert torch.equal(Y, Y1), (degree, comm, sched, ov)
+            split = 1 if ov else 0  # step 0's local prefix: one more launch
+            assert launched["ell_gather_cheb"] == P * (degree - 1)
+            assert launched["ell_gather"] == P * (1 + split) + P * split * (
+                sell.n_groups(degree) - 1)
+            assert launched["cheb_dia"] == 0

@@ -12,6 +12,7 @@ package's (``repro/core/planner.py``) on the CPU.
   same order with the same times at P = 8, kernel axis on.
 * ``plan_on_grid`` takes the three splits ``P × 1``, ``n_row × n_col``
   and ``1 × P``, as the reference's ``plan_for_mesh`` does.
+* The s-step axis ranks (its parity is ``tests/test_torch_sstep.py``'s).
 """
 import numpy as np
 import pytest
@@ -180,11 +181,19 @@ def test_plan_on_grid_takes_the_three_splits(grid):
 
 
 def test_sstep_axis_is_not_ported_yet():
+    """The s-step axis is ported (``tests/test_torch_sstep.py`` holds it
+    to the reference): ``plan_layout`` ranks the depth-2 candidates beside
+    s = 1, ``comm_plan(sstep=2)`` is a depth-2 plan, and a depth below 1
+    raises as in the reference."""
     _, m = _mats("spin")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        planner.plan_layout(m, 4, n_search=16, sstep=(1, 2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        planner.comm_plan(m, 4, sstep=2)
+    plan = planner.plan_layout(m, 4, n_search=16, sstep=(1, 2))
+    assert {c.sstep for c in plan.candidates} == {1, 2}
+    assert any(c.name.endswith("+s2") for c in plan.candidates)
+    assert planner.comm_plan(m, 4, sstep=2).sstep == 2
+    with pytest.raises(ValueError, match="sstep values must be >= 1"):
+        planner.plan_layout(m, 4, n_search=16, sstep=(0,))
+    with pytest.raises(ValueError, match="sstep must be >= 1"):
+        planner.comm_plan(m, 4, sstep=0)
 
 
 def test_plan_layout_refuses_what_the_reference_refuses():

@@ -135,21 +135,22 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(layout="auto", spmv_sstep=2), NotImplementedError,
-     "not ported yet"),
-    (dict(spmv_comm="compressed", spmv_sstep=2), NotImplementedError,
-     "not ported yet"),
-    (dict(spmv_sstep=2), NotImplementedError, "not ported yet"),
+    (dict(layout="auto", spmv_sstep=0), ValueError,
+     "spmv_sstep must be >= 1"),
+    (dict(spmv_comm="compressed", spmv_sstep=-1), ValueError,
+     "spmv_sstep must be >= 1"),
+    (dict(spmv_sstep=0), ValueError, "spmv_sstep must be >= 1"),
     (dict(plan_mode="sampled", spmv_balance="commvol", spmv_reorder="rcm"),
      ValueError, "cannot plan reorder"),
     (dict(redist_impl="nccl"), ValueError, "unknown redist_impl"),
 ], ids=["layout-auto", "compressed-sstep", "sstep", "sampled-commvol",
         "redist-impl"])
 def test_unported_options_raise(change, error, match):
-    """What is not ported yet (the s-step filter, with or without the
-    planner) raises ``NotImplementedError`` naming ROADMAP; what the
-    reference refuses (a sampled RCM order) and an option value that does
-    not exist raise ``ValueError``."""
+    """What the reference refuses (an s-step depth below 1, with or
+    without the planner; a sampled RCM order) and an option value that
+    does not exist raise ``ValueError``. (The s-step filter, which raised
+    ``NotImplementedError`` here until it was ported, solves:
+    ``tests/test_torch_sstep.py``.)"""
     cfg = FDConfig(**{**CASE, **change})
     with pytest.raises(error, match=match):
         FilterDiag(SpinChainXXZ(6, 3), cfg, device="cpu", n_row=2)
