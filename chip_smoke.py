@@ -128,7 +128,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      depth); both kernels must launch;
    * Exciton(L=30) in the pillar layout 1 × 4 (the exciton200 config's
      production layout, paper Table 4) at N_s = 384, n_target cut from
-     the config's 100 to 16:
+     the config's 100 to 8 (the stack solve's; 16 until the service
+     phase came in):
      ``cheb_dia`` (the bundles' steps) and ``ell_gather`` must launch, the
      epilogue entry must not; every eigenvalue the stack solve returned
      (at least 8) equal to one of its own to 1e-9, with multiplicity;
@@ -162,12 +163,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      eigenvalues equal to the 8-shard solve's to 1e-9;
    * the RoadNet solve in the pillar layout 1 × 8 on the RCM row map
      (``--spmv-reorder rcm``): the ELL route with no halo in the filter;
-     its eigenvalues equal to the one-shard solve's to 1e-9.
+     its eigenvalues equal to the one-shard solve's to 1e-9;
+8. service — the eigensolve service (``repro_torch.service``) on the
+   roadnet48k config at full width, RoadNet(48000), fp64, N_s = 64 a
+   request, two requests ("a": n_target 16, seed 11; "b": n_target 8,
+   seed 22; τ the RoadNet solves', tol 1e-10), planned by the service
+   over 8 shards with the plan phase's fit and the kernels, through one
+   plan cache:
+
+   * run 1, the Python API: both requests batched into one panel, a
+     supervised drain with a checkpoint every 20 iterations (each
+     ≈ 49 MB) and a fault injected once at iteration 30, which the
+     supervisor restores from iteration 20;
+   * runs 2 and 3: each request alone through ``python -m
+     repro_torch.launch.solve --serve`` (in process), no checkpoints;
+   * checks: one restart; each request's eigenvalues, residuals,
+     iterations, SpMVs and degrees equal to its solo run's bit for bit;
+     the planner called once over the three drains and hit at least
+     twice; every returned pair's host residual ≤ 1e-8; request "a"'s
+     eigenvalues equal to the RoadNet solve's to 1e-9; ``ell_gather_cheb``
+     launched in every run, the batch's launches fewer than the solo
+     runs' together and equal to what the histories predict (per
+     iteration, the larger pending degree less one, times the solo runs'
+     launches a fused step, the replayed iterations 20–29 twice);
+   * the planned cell's filter operator through ``ell_gather`` and its
+     epilogue entry at the batch's bundle width (128 / N_col), held
+     bit for bit to the plain versions, against cuSPARSE (kernel cases).
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
 them is the ``kernels`` record (both kernels and the epilogue entry,
-each with its launches on the solves, by solve, and its dtype cases).
+each with its launches on the solves and the service's three runs, by
+run, and its dtype cases).
 ``--kernels-only`` stops after phase 3 and prints no result line (for
 tuning the kernels; the full run is the check).
 """
@@ -204,9 +231,13 @@ MAX_ITERS = 60  # ~48 needed at the tolerance below (53 at 1e-10)
 CUT_TOL = 5e-9
 # the exciton200 config cut to one card (L = 200 -> 30), its N_s and N_t
 EXCITON = dict(L=30)
+# the Exciton stack solve's depth, cut from 16 to 8 to make room for the
+# plan phase
+EX_STACK_N_TARGET = 8
 # the pillar solve's depth, cut from the config's 100 to 16 to make room
-# for the s-step solves (194 iterations, 313.925 s at 100)
-EX_N_SEARCH, EX_N_TARGET = 384, 16
+# for the s-step solves (194 iterations, 313.925 s at 100), then to the
+# stack solve's 8 for the service phase (121 iterations, 219.307 s at 16)
+EX_N_SEARCH, EX_N_TARGET = 384, EX_STACK_N_TARGET
 EX_MAX_ITERS = 300
 TOPINS = dict(Lx=40)  # D = 256,000
 # the roadnet48k config's matrix and N_s, N_t
@@ -216,9 +247,6 @@ RN_MAX_ITERS = 400  # ~150 needed at the upper edge
 # the hubnet48k config's matrix and N_s, N_t
 HUBNET = dict(n=48000, w=2, h=5, m=512, k=4)
 HN_N_SEARCH, HN_N_TARGET, HN_MAX_ITERS = 64, 16, 400
-# the Exciton stack solve's depth, cut from 16 to 8 to make room for the
-# plan phase
-EX_STACK_N_TARGET = 8
 # the s-step solves' depth and shards
 SSTEP, SSTEP_P = 3, 8
 # the vertical layer's solves: (n_row, n_col) of their grids
@@ -228,6 +256,11 @@ EX_PILLAR, HN_PANEL, RN_PILLAR = (1, 4), (4, 2), (1, 8)
 BUNDLE_NB = dict(hubbard=N_SEARCH // 4, exciton=EX_N_SEARCH // EX_PILLAR[1],
                  hubnet=HN_N_SEARCH // HN_PANEL[1],
                  roadnet=RN_N_SEARCH // RN_PILLAR[1])
+# the service phase: two requests (id, n_target, seed) on the roadnet48k
+# config over 8 shards; a checkpoint every 20 iterations and one fault at
+# iteration 30
+SVC_REQUESTS = (("a", RN_N_TARGET, 11), ("b", 8, 22))
+SVC_SHARDS, SVC_CKPT_INTERVAL, SVC_FAULT_AT = 8, 20, 30
 # forced slab widths timed at Hubbard n_b = 512 (fp64) and Exciton
 # n_b = 384 (complex128)
 SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
@@ -1775,6 +1808,236 @@ def phase_solves(fit_path: str) -> dict:
     return out
 
 
+def _service_run(label: str, results: dict, A, launches: dict,
+                 wall: float) -> dict:
+    """One service run's record: each request's result host-checked
+    (every returned pair ‖A·x − θ·x‖ ≤ 1e-8), the launches, the wall."""
+    import numpy as np
+
+    out = dict(wall_s=wall, launches=launches, requests={})
+    for rid, res in sorted(results.items()):
+        X, theta = res.eigenvectors, res.eigenvalues
+        if not (np.isfinite(theta).all() and np.isfinite(X).all()
+                and X.shape == (A.shape[0], len(theta))):
+            raise SmokeFailure(f"service {label} {rid}: bad result "
+                               f"{theta.shape}, {X.shape}")
+        resid = np.linalg.norm(A @ X - X * theta, axis=0)
+        if not (resid <= 1e-8).all():
+            raise SmokeFailure(f"service {label} {rid}: host residual "
+                               f"{resid.max():.3e} > 1e-8")
+        out["requests"][rid] = dict(
+            iterations=res.iterations, n_converged=res.n_converged,
+            total_spmvs=res.total_spmvs,
+            degrees=[h.get("degree") for h in res.history
+                     if "degree" in h],
+            eigenvalues=[float(t) for t in theta],
+            eigenvalues_hex=[float(t).hex() for t in theta],
+            residuals_hex=[float(r).hex() for r in res.residuals],
+            host_residual_max=float(resid.max()),
+            exchange=res.exchange)
+    log(f"[service {label}] wall {wall:.3f} s, launches {launches}; "
+        + "; ".join(f"{rid}: {r['iterations']} iterations, "
+                    f"{r['n_converged']} converged, host residual "
+                    f"{r['host_residual_max']:.3e}"
+                    for rid, r in out["requests"].items()))
+    return out
+
+
+def phase_service(records: list, fit_path: str, solves: dict,
+                  out_dir: str) -> dict:
+    """The eigensolve service on the roadnet48k config (phase 8): a
+    batched, supervised drain with an injected fault, then each request
+    alone through the CLI's ``--serve``, all through one plan cache."""
+    import contextlib
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_dist_ell
+    from repro_torch.core import perf_model as pm
+    from repro_torch.kernels import build
+    from repro_torch.launch import solve as cli
+    from repro_torch.matrices import RoadNet
+    from repro_torch.runtime import SupervisorConfig
+    from repro_torch.service import EigenService, PlanCache, SolveRequest
+
+    target = solves["roadnet"]["target"]
+    mat = RoadNet(**ROADNET)
+    A = mat.build_csr().to_scipy()
+    cache_path = os.path.join(out_dir, "service_plan_cache.json")
+    ckpt_root = os.path.join(out_dir, "service_ckpt")
+    for path in (cache_path, cache_path + ".lock"):
+        if os.path.exists(path):
+            os.remove(path)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    request = dict(family="RoadNet", params=ROADNET, n_search=RN_N_SEARCH,
+                   target=target, tol=1e-10, max_iters=RN_MAX_ITERS)
+
+    # run 1: both requests in one panel, supervised, one injected fault
+    cache = PlanCache(cache_path)
+    svc = EigenService(n_shards=SVC_SHARDS, device="cuda", spmv_kernel=True,
+                       plan_cache=cache, machine=pm.load_machine(fit_path),
+                       ckpt_root=ckpt_root, service_seed=0,
+                       supervisor_cfg=SupervisorConfig(
+                           checkpoint_interval=SVC_CKPT_INTERVAL,
+                           max_restarts=1))
+    for rid, n_target, seed in SVC_REQUESTS:
+        svc.submit(SolveRequest(rid, n_target=n_target, seed=seed,
+                                **request))
+    faults = []
+
+    def fault_hook(step):
+        if step == SVC_FAULT_AT and not faults:
+            faults.append(step)
+            raise RuntimeError(f"fault injected at iteration {step}")
+
+    log(f"[service] batched drain of {[r[0] for r in SVC_REQUESTS]} over "
+        f"{SVC_SHARDS} shards, checkpoints every {SVC_CKPT_INTERVAL} "
+        f"iterations in {ckpt_root}, a fault at iteration {SVC_FAULT_AT}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    results = svc.drain(fault_hook=fault_hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs = {"service_batched": _service_run(
+        "batched", results, A, dict(build.launches), wall)}
+    group = svc.groups[0]
+    best = next(iter(svc.plans.values())).best
+    log(f"[service batched] planned cell {group['cell']} "
+        f"(spmv_overlap={best.overlap}, spmv_comm={best.comm}, "
+        f"spmv_schedule={best.schedule}, spmv_balance={best.balance}), "
+        f"block width {group['width']}, bundle width "
+        f"{group['bundle_width']}, restarts {svc.restarts}, faults {faults}")
+    if svc.restarts != 1 or faults != [SVC_FAULT_AT]:
+        raise SmokeFailure(f"the faulted drain restarted {svc.restarts} "
+                           f"times (faults {faults}), expected once")
+    plan_calls, hits = cache.plan_calls, cache.hits
+
+    # runs 2 and 3: each request alone through the CLI's --serve
+    for rid, n_target, seed in SVC_REQUESTS:
+        spec_path = os.path.join(out_dir, f"service_request_{rid}.json")
+        with open(spec_path, "w") as f:
+            json.dump({"requests": [dict(req_id=rid, n_target=n_target,
+                                         seed=seed, **request)],
+                       "service_seed": 0}, f)
+        argv = ["--serve", spec_path, "--plan-cache", cache_path,
+                "--n-row", str(SVC_SHARDS), "--machine", fit_path,
+                "--spmv-kernel", "--device", "cuda"]
+        log(f"[service solo {rid}] python -m repro_torch.launch.solve "
+            + " ".join(argv))
+        torch.cuda.synchronize()
+        build.reset_launches()
+        printed = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[f"service_solo_{rid}"] = _service_run(
+            f"solo {rid}", res, A, dict(build.launches), wall)
+        counts = re.search(r"\[plan-cache\] hits=(\d+) misses=(\d+) "
+                           r"plan_calls=(\d+)", printed.getvalue())
+        if counts is None:
+            raise SmokeFailure(f"service solo {rid}: no plan-cache counts")
+        hits += int(counts.group(1))
+        plan_calls += int(counts.group(3))
+
+    # each request bit-equal to its solo run
+    batched = runs["service_batched"]
+    for rid, _, _ in SVC_REQUESTS:
+        b = batched["requests"][rid]
+        s = runs[f"service_solo_{rid}"]["requests"][rid]
+        same = {k: b[k] == s[k] for k in ("eigenvalues_hex", "residuals_hex",
+                                          "iterations", "total_spmvs",
+                                          "degrees")}
+        b["bitwise_to_solo"] = same
+        log(f"[service] {rid} batched vs solo: {same}")
+        if not all(same.values()):
+            raise SmokeFailure(f"service request {rid}: batched differs "
+                               f"from solo: {same}")
+    log(f"[service] plan cache over the three drains: plan_calls "
+        f"{plan_calls}, hits {hits}")
+    if plan_calls != 1 or hits < 2:
+        raise SmokeFailure(f"the plan cache planned {plan_calls} times and "
+                           f"hit {hits} times over three drains")
+    # request "a" is the RoadNet solve's problem: the same eigenvalues
+    want = closest(solves["roadnet"]["eigenvalues"], target, RN_N_TARGET)
+    got = closest(batched["requests"]["a"]["eigenvalues"], target,
+                  RN_N_TARGET)
+    dev = float(np.abs(got - want).max())
+    batched["requests"]["a"]["max_dev_from_roadnet"] = dev
+    log(f"[service] a vs the roadnet solve: max |d| = {dev:.3e}")
+    if not dev <= 1e-9:
+        raise SmokeFailure(f"service request a differs from the roadnet "
+                           f"solve by {dev:.3e}")
+    # one shared sweep: launches of the larger pending degree
+    for label, r in runs.items():
+        if r["launches"]["ell_gather_cheb"] <= 0:
+            raise SmokeFailure(f"{label}: ell_gather_cheb was never launched")
+    per_step = set()
+    for rid, _, _ in SVC_REQUESTS:
+        r = runs[f"service_solo_{rid}"]
+        steps = sum(d - 1 for d in r["requests"][rid]["degrees"])
+        per_step.add(r["launches"]["ell_gather_cheb"] / steps)
+    if len(per_step) != 1 or not float(next(iter(per_step))).is_integer():
+        raise SmokeFailure(f"the solo runs launch ell_gather_cheb "
+                           f"{per_step} times a fused step")
+    per_step = int(next(iter(per_step)))
+    degs = [batched["requests"][rid]["degrees"] for rid, _, _ in SVC_REQUESTS]
+    n_max = [max(d[i] for d in degs if i < len(d))
+             for i in range(max(map(len, degs)))]
+    replayed = range(SVC_CKPT_INTERVAL, SVC_FAULT_AT)
+    predicted = per_step * (sum(n - 1 for n in n_max)
+                            + sum(n_max[i] - 1 for i in replayed))
+    launched = batched["launches"]["ell_gather_cheb"]
+    solo_sum = sum(runs[f"service_solo_{rid}"]["launches"]["ell_gather_cheb"]
+                   for rid, _, _ in SVC_REQUESTS)
+    solo_wall = sum(runs[f"service_solo_{rid}"]["wall_s"]
+                    for rid, _, _ in SVC_REQUESTS)
+    log(f"[service] batched ell_gather_cheb launches {launched}, predicted "
+        f"{predicted} ({per_step} a fused step), solo runs {solo_sum}; "
+        f"batched wall {batched['wall_s']:.3f} s against the solo walls' "
+        f"sum {solo_wall:.3f} s")
+    if launched != predicted or not launched < solo_sum:
+        raise SmokeFailure(f"the batched drain launched ell_gather_cheb "
+                           f"{launched} times, predicted {predicted}, solo "
+                           f"runs {solo_sum}")
+
+    # the planned cell's filter operator at the batch's bundle width
+    gen = torch.Generator(device="cuda").manual_seed(2031)
+    n_b = group["bundle_width"]
+    ell = build_dist_ell(mat, best.n_row, dtype="float64",
+                         d_pad=-(-mat.D // SVC_SHARDS) * SVC_SHARDS,
+                         rowmap=best.rowmap, device="cuda")
+    label = f"RoadNet service {group['cell']}"
+    if ell.P == 1:
+        ell_case(records, label, ell.cols[0], ell.vals[0], n_b, "float64",
+                 gen, cheb=True, bitwise=("float64",))
+    else:
+        nplan = ell.neighbor_plan(schedule=best.schedule)
+        for p in range(ell.P):
+            ell_case(records, f"{label} shard {p}", nplan.cols_nbr[p],
+                     ell.vals[p], n_b, "float64", gen, cheb=True,
+                     Rx=ell.R + nplan.H, bitwise=("float64",))
+    del ell
+    torch.cuda.empty_cache()
+    # the checkpoints are the run's scratch: their size, then gone
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(ckpt_root) for f in fs)
+    log(f"[service] checkpoints left in {ckpt_root}: {ckpt_bytes} B "
+        "(removed)")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return dict(cell=group["cell"], width=group["width"],
+                checkpoint_bytes_kept=ckpt_bytes,
+                bundle_width=n_b, restarts=svc.restarts,
+                plan_calls=plan_calls, hits=hits,
+                ell_gather_cheb_predicted=predicted,
+                ell_gather_cheb_per_step=per_step, runs=runs)
+
+
 def write_record(path: str, record: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -1838,6 +2101,9 @@ def run(args) -> int:
     t0 = time.perf_counter()
     plan["sstep"] = sstep_plan_case(fit_path, solves)
     log(f"[plan] s-step against the solves {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    service = phase_service(records, fit_path, solves, out_dir)
+    log(f"[service] phase {time.perf_counter() - t0:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
@@ -1849,7 +2115,8 @@ def run(args) -> int:
                       max_abs_err=c["max_abs_err"], bitwise=c["bitwise"])
                  for c in records
                  if c["name"] == k and not c["case"].startswith("sweep")]
-        by_solve = {s: v["launches"][k] for s, v in solves.items()}
+        by_solve = {s: v["launches"][k]
+                    for s, v in {**solves, **service["runs"]}.items()}
         line.append(dict(
             name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
             launches=sum(by_solve.values()), launches_by_solve=by_solve,
@@ -1863,7 +2130,8 @@ def run(args) -> int:
                                     build_seconds=build.build_seconds,
                                     checks=records, engines=engines,
                                     layouts=layouts, plan=plan,
-                                    solves=solves, kernels=line))
+                                    solves=solves, service=service,
+                                    kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
         "check to the result")
     log(json.dumps({"kernels": line}))

@@ -20,7 +20,13 @@ same state:
 * the planner's host values, as plain fields (numpy arrays, floats,
   strings): a ``MachineModel``, an ``SpmvCommPlan`` (at any depth s), a
   ``SampledCommEstimate`` (with its ``ChiMetrics`` and ``ChiBand``) and a
-  ``Plan`` with its candidates, each with the row map it holds.
+  ``Plan`` with its candidates, each with the row map it holds; or a
+  ``Plan`` through its JSON (``service/plan_cache.py``'s format, the same
+  in both packages);
+* the draws of a batched service group: the Lanczos start vector from
+  ``jax.random.split(PRNGKey(service_seed))[0]`` and each request's search
+  block from ``split(PRNGKey(seed))[1]``, as ``BatchedJob``'s ``v0`` and
+  ``V0``.
 
 Each function that makes tensors puts them on ``device``: the card unless
 ``"cpu"`` is given. The planner's converters take the reference's
@@ -41,6 +47,7 @@ from .core.spmv import DistEll, NeighborPlan, SstepEll, SstepNeighbor
 from .device import resolve_device
 from .kernels.ops import DiaPlan
 from .kernels.plan import span_of
+from .service import plan_cache
 
 
 def _one_shard(a: np.ndarray, ndim: int, what: str) -> np.ndarray:
@@ -343,3 +350,20 @@ def plan_from_fields(plan) -> Plan:
                 machine=str(plan.machine),
                 candidates=tuple(candidate_from_fields(c)
                                  for c in plan.candidates))
+
+
+def plan_from_json(j: dict) -> Plan:
+    """The port's :class:`~repro_torch.core.planner.Plan` from the JSON of
+    a reference plan (``repro.service.plan_cache.plan_to_json``), its
+    candidates and row maps exact."""
+    return plan_cache.plan_from_json(j)
+
+
+def batch_draws_from_arrays(v0, V0_by_request: dict) -> dict:
+    """``BatchedJob``'s ``v0`` and ``V0`` from the reference batcher's
+    draws (``repro/service/batcher.py:147-167``): ``v0`` the Lanczos start
+    ``[D_pad]`` or ``[D_pad, 1]`` (position space), ``V0_by_request``
+    ``{req_id: [D_pad, n_search]}`` (its ``random_search_vectors``, the
+    equal-rows partition's positions) or ``[D, n_search]`` (row order)."""
+    return dict(v0=np.array(v0, dtype=np.float64).reshape(-1, 1),
+                V0={str(rid): np.array(V) for rid, V in V0_by_request.items()})

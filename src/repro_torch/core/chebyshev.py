@@ -7,6 +7,16 @@ traffic factor at κ=5 instead of 6 — paper §3.2). The reference's
 (``Y = Y + mu_k·T_k``); ``Y`` is updated in place, so the loop holds four
 blocks (Y and three recurrence terms) and allocates one per step.
 
+``mu`` may also be ``[n+1, n_cols]``, one coefficient column per column
+of V (the reference batcher's ``Mu``, ``repro/service/batcher.py:
+198-205``): the columns of several requests share one sweep, each with
+its own polynomial, zero-padded past its own degree. Each step then
+updates ``Y.addcmul_(T_k, mu[k])``, one rounding per element as
+``Y.add_(T_k, alpha=mu_k)`` has (both a fused multiply-add, on the CPU
+in every dtype and on the card), so a column whose coefficients equal a
+1-D ``mu`` gets that filter's bits, and a zero-padded column its own
+degree's (``Y + 0·T_k`` is ``Y``).
+
 :func:`chebyshev_filter_sstep` evaluates the same polynomial in ⌈n/s⌉
 groups of s steps, one depth-s ghost exchange each
 (``core/spmv.py::make_sstep_cheb``), with the same accumulation; KPM
@@ -37,12 +47,19 @@ def _real_dtype(V: torch.Tensor):
 
 
 def _rounded(V: torch.Tensor, mu, alpha: float, beta: float):
-    """``mu`` (a list), ``alpha`` and ``beta`` rounded to V's real dtype,
-    as the reference rounds them; the degree must be at least 2."""
+    """``mu``, ``alpha`` and ``beta`` rounded to V's real dtype, as the
+    reference rounds them; the degree must be at least 2. A 1-D ``mu``
+    becomes a list of floats, a 2-D ``[n+1, n_cols]`` one a tensor on V's
+    device (``n_cols`` must be V's)."""
     np_dt = _real_dtype(V)
-    mu = [float(m) for m in np.asarray(mu, dtype=np_dt)]
-    if len(mu) - 1 < 2:
-        raise ValueError(f"filter degree must be >= 2, got {len(mu) - 1}")
+    mu = np.asarray(mu, dtype=np_dt)
+    if mu.ndim not in (1, 2) or (mu.ndim == 2 and mu.shape[1] != V.shape[1]):
+        raise ValueError(f"mu must be [n+1] or [n+1, {V.shape[1]}], got "
+                         f"{list(mu.shape)}")
+    if mu.shape[0] - 1 < 2:
+        raise ValueError(f"filter degree must be >= 2, got {mu.shape[0] - 1}")
+    mu = ([float(m) for m in mu] if mu.ndim == 1
+          else torch.as_tensor(mu, device=V.device))
     return mu, float(np_dt(alpha)), float(np_dt(beta))
 
 
@@ -50,15 +67,17 @@ def chebyshev_filter(spmv, mu, alpha: float, beta: float, V: torch.Tensor,
                      fused_step=None) -> torch.Tensor:
     """Return p[A]V given ``spmv``.
 
-    ``mu`` is a length-(n+1) coefficient array (n >= 2); it and ``alpha``,
-    ``beta`` are rounded to V's real dtype (float64 for a complex128 block,
-    float32 for complex64), as the reference does. ``fused_step(w1, w2,
-    alpha, beta)``, when given
+    ``mu`` is a length-(n+1) coefficient array (n >= 2), or ``[n+1,
+    n_cols]`` with a column per column of V (module docstring); it and
+    ``alpha``, ``beta`` are rounded to V's real dtype (float64 for a
+    complex128 block, float32 for complex64), as the reference does.
+    ``fused_step(w1, w2, alpha, beta)``, when given
     (:func:`~repro_torch.core.spmv.make_fused_cheb_step`), replaces the
     inline ``2a·spmv(w1) + 2b·w1 - w2`` step.
     """
     mu, a, b = _rounded(V, mu, alpha, beta)
     n = len(mu) - 1
+    per_column = isinstance(mu, torch.Tensor)
 
     if fused_step is None:
         def fused_step(w1, w2, alpha_, beta_):
@@ -68,9 +87,12 @@ def chebyshev_filter(spmv, mu, alpha: float, beta: float, V: torch.Tensor,
     W2 = fused_step(W1, V, alpha, beta)          # T2
     Y = mu[0] * V + mu[1] * W1 + mu[2] * W2
     Tkm1, Tkm2 = W2, W1
-    for mu_k in mu[3:]:
+    for k in range(3, n + 1):
         Tk = fused_step(Tkm1, Tkm2, alpha, beta)
-        Y.add_(Tk, alpha=mu_k)
+        if per_column:
+            Y.addcmul_(Tk, mu[k])
+        else:
+            Y.add_(Tk, alpha=mu[k])
         Tkm1, Tkm2 = Tk, Tkm1
     return Y
 
@@ -91,6 +113,9 @@ def chebyshev_filter_sstep(group, mu, alpha: float, beta: float,
     ``Y`` is accumulated exactly as :func:`chebyshev_filter` accumulates
     it, the init ``mu0·V + mu1·T1 + mu2·T2`` then ``Y.add_(T_k,
     alpha=mu_k)``, so the result equals the s = 1 filter bit for bit."""
+    if np.ndim(mu) != 1:
+        raise ValueError("the s-step filter takes a 1-D mu (a batch of "
+                         "requests filters each request on its own)")
     mu, a, b = _rounded(V, mu, alpha, beta)
     n, s = len(mu) - 1, int(s)
     if s < 2:

@@ -337,6 +337,30 @@ class FilterDiag:
                         P=pn.P, L=self.ell_panel.L, bytes=dict(pn.bytes),
                         calls=dict(pn.calls)))
 
+    def counters(self) -> dict:
+        """The solver's running counters, as JSON: the bytes and calls of
+        the stack group's collectives and of the panel group's (None when
+        ``N_col = 1``) and ``filter_exchanges``. They live on the solver,
+        not in :class:`FDState`, so a resumable job carries them in its
+        checkpoint (``service/jobs.py``) and a resumed solve reports what
+        the uninterrupted one would."""
+        st, pn = self.grid.stack, self.grid.panel
+        return dict(stack=dict(bytes=dict(st.bytes), calls=dict(st.calls)),
+                    panel=None if pn is st else dict(bytes=dict(pn.bytes),
+                                                     calls=dict(pn.calls)),
+                    filter_exchanges=int(self.filter_exchanges))
+
+    def set_counters(self, counters: dict) -> None:
+        """Set the running counters to ``counters`` (:meth:`counters`)."""
+        groups = [(self.grid.stack, counters["stack"])]
+        if counters["panel"] is not None:
+            groups.append((self.grid.panel, counters["panel"]))
+        for group, c in groups:
+            for kind in group.bytes:
+                group.bytes[kind] = int(c["bytes"][kind])
+                group.calls[kind] = int(c["calls"][kind])
+        self.filter_exchanges = int(counters["filter_exchanges"])
+
     def gather_global(self, V) -> np.ndarray:
         """The rows of a padded [D_pad, ...] block in the original row
         order, [D, ...], on the host: the pads stripped and the rows
@@ -402,6 +426,36 @@ class FilterDiag:
         return target, search
 
     # ------------------------------------------------------------------
+    def generator(self, seed: int) -> torch.Generator:
+        """A generator on the solver's device seeded with ``seed``."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _draw(self, generator: torch.Generator, n_cols: int) -> torch.Tensor:
+        """``[D, n_cols]`` standard normals in row order, placed."""
+        return self._place(torch.randn((self.D, n_cols), generator=generator,
+                                       dtype=torch.float64,
+                                       device=self.device), row_order=True)
+
+    def lanczos_start(self, generator: torch.Generator) -> torch.Tensor:
+        """The Lanczos start vector ``[D_pad, 1]`` :meth:`init_state`
+        draws from ``generator`` (in row order, then placed)."""
+        return self._draw(generator, 1)
+
+    def random_search_vectors(self,
+                              generator: torch.Generator) -> torch.Tensor:
+        """A search block ``[D_pad, N_s]`` drawn from ``generator`` in row
+        order and placed: the same vectors whatever the layout, shard count
+        or row map (the reference's ``random_search_vectors``,
+        ``repro/core/filter_diag.py:334``)."""
+        return self._draw(generator, self.cfg.n_search)
+
+    def lanczos(self, v0) -> tuple:
+        """The Lanczos inclusion interval from the start vector ``v0``
+        (``[D_pad, 1]`` in position space, its pads masked)."""
+        return lanczos_interval(self.spmv, self.D, self.dtype, self.device,
+                                v0=v0, steps=self.cfg.lanczos_steps,
+                                D_pad=self.D_pad, mask=self._mask)
+
     def init_state(self, V0=None, v0=None,
                    generator: torch.Generator | None = None) -> FDState:
         """Fresh :class:`FDState`: Lanczos inclusion interval + search block.
@@ -419,20 +473,13 @@ class FilterDiag:
         """
         cfg = self.cfg
         if generator is None and (V0 is None or v0 is None):
-            generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
-
-        def draw(n_cols):
-            return torch.randn((self.D, n_cols), generator=generator,
-                               dtype=torch.float64, device=self.device)
-
+            generator = self.generator(cfg.seed)
         t0 = time.perf_counter()
-        v = self._place(draw(1) if v0 is None else v0,
-                        row_order=v0 is None).reshape(-1, 1)
-        lam = lanczos_interval(self.spmv, self.D, self.dtype, self.device,
-                               v0=v, steps=cfg.lanczos_steps, D_pad=self.D_pad,
-                               mask=self._mask)
-        V = self._place(draw(cfg.n_search) if V0 is None else V0,
-                        row_order=True)
+        v = (self.lanczos_start(generator) if v0 is None
+             else self._place(v0, row_order=False).reshape(-1, 1))
+        lam = self.lanczos(v)
+        V = (self.random_search_vectors(generator) if V0 is None
+             else self._place(V0, row_order=True))
         return FDState(V=V, lam=lam, total_spmvs=cfg.lanczos_steps,
                        wall_time=time.perf_counter() - t0)
 
@@ -525,26 +572,58 @@ class FilterDiag:
         cfg = cfg if cfg is not None else self.cfg
         t_begin = time.perf_counter()
         mu, degree = state.pending
-        alpha, beta = scale_params(*state.lam)
         V, state.V = state.V, None
         Vp = self._redistribute(state, self.to_panel, V)
         del V
-        # each bundle's filter output becomes the bundle
-        bundles = [self._filter(Vj, mu, alpha, beta) for Vj in Vp]
+        bundles = self._filter_bundles(Vp, mu, degree, state.lam)
         del Vp
-        exchanges = (-(-degree // self.sstep)
-                     if self.N_row > 1 and self.ell_panel.L > 0 else 0)
-        self.filter_exchanges += exchanges * self.N_col
         V = self._redistribute(state, self.to_stack, bundles)
         del bundles
         state.V = V
         state.total_spmvs += degree * cfg.n_search
         state.history[-1]["degree"] = degree
-        state.history[-1]["exchanges"] = exchanges
+        state.history[-1]["exchanges"] = self.exchanges_per_filter(degree)
         state.pending = None
         state.iteration += 1
         state.wall_time += time.perf_counter() - t_begin
         return state
+
+    def exchanges_per_filter(self, degree: int) -> int:
+        """The panel level's halo exchanges of one bundle's filter of
+        ``degree``: ⌈degree/s⌉, none without a halo."""
+        return (-(-degree // self.sstep)
+                if self.N_row > 1 and self.ell_panel.L > 0 else 0)
+
+    def _filter_bundles(self, Vp, mu, degree: int, lam) -> list:
+        """Filter each bundle of the panel block ``Vp [N_col, D_pad, n_c]``
+        (its output becomes the bundle); a 2-D ``mu`` gives bundle j its
+        columns ``[j·n_c, (j+1)·n_c)``. Counts the exchanges."""
+        alpha, beta = scale_params(*lam)
+        n_c = Vp.shape[-1]
+        per_column = np.ndim(mu) == 2
+        bundles = [self._filter(
+            Vj, mu[:, j * n_c:(j + 1) * n_c] if per_column else mu,
+            alpha, beta) for j, Vj in enumerate(Vp)]
+        self.filter_exchanges += self.exchanges_per_filter(degree) * self.N_col
+        return bundles
+
+    def filter_block(self, V, mu, degree: int, lam,
+                     tally: FDState) -> torch.Tensor:
+        """``p[A]V`` for a stack block ``V [D_pad, W]`` of any width W that
+        ``N_col`` divides, in the filter layout: redistribute to the panel,
+        filter each bundle, redistribute back (the reference batcher's
+        use of ``_cheb(n)``, ``repro/service/batcher.py:189-230``). ``mu``
+        is ``[degree+1]`` or ``[degree+1, W]``, a column of coefficients
+        per column of V (``chebyshev_filter``); the s-step filter takes
+        the 1-D form only. The redistributions are counted and timed on
+        ``tally`` (an :class:`FDState`)."""
+        if V.shape[1] % self.N_col:
+            raise ValueError(f"a block of {V.shape[1]} columns does not "
+                             f"split into {self.N_col} bundles")
+        Vp = self._redistribute(tally, self.to_panel, V)
+        bundles = self._filter_bundles(Vp, mu, degree, lam)
+        del Vp
+        return self._redistribute(tally, self.to_stack, bundles)
 
     def _filter(self, V, mu, alpha, beta):
         """One bundle's Chebyshev filter: the s-step filter at

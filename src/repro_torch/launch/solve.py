@@ -47,6 +47,21 @@ Exciton and TopIns (complex; the fused step runs the DIA kernel where the
 filter's operator needs no halo), RoadNet and HubNet (no DIA form; the
 ELL kernel and the epilogue).
 
+``--plan-cache PATH`` puts a persistent plan cache
+(``service/plan_cache.py``) in front of ``--layout auto`` and of
+``--serve``: a repeat pattern skips the planner and runs the cached plan.
+``--serve REQUESTS.json`` solves a JSON batch of requests through the
+service (``service/batcher.py``; the reference's format, ``{"requests":
+[{"req_id", "family", "params", "n_target", "n_search", "target",
+"tol", "max_iters", "seed"}, ...], "checkpoint_root": optional,
+"service_seed": optional}``): compatible requests share one panel, each
+result bit-identical to serving the request alone; the service plans
+over ``--n-row · --n-col`` shards with ``--machine`` and
+``--spmv-kernel``, in float64, and ``--family`` is not needed.
+``--degraded-ok`` retries a failed solve with one column group fewer
+(``n_search − n_search // n_col`` on ``n_row × (n_col − 1)``, the same
+device and kernel flag) unless the failure is a kernel's or the card's.
+
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. Prints the converged count, iterations, SpMVs, the layout, the
 redistributions and the bytes the shards' collectives moved at each
@@ -56,15 +71,21 @@ each CUDA kernel.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import time
 
 import numpy as np
+import torch
 
 from ..core import FDConfig, FilterDiag
 from ..core import perf_model as pm
-from ..core.planner import auto_axes, config_for, plan_layout
+from ..core.planner import auto_axes, config_for
 from ..kernels import build
 from ..matrices import available_families, get_family
+from ..service import EigenService, PlanCache, SolveRequest
+from ..service.plan_cache import cached_plan_layout
 
 
 def parse_params(s: str) -> dict:
@@ -82,7 +103,8 @@ def parse_params(s: str) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
-    ap.add_argument("--family", required=True, choices=available_families())
+    ap.add_argument("--family", choices=available_families(),
+                    help="the matrix family (required unless --serve)")
     ap.add_argument("--params", default="")
     ap.add_argument("--n-target", type=int, default=8)
     ap.add_argument("--n-search", type=int, default=32)
@@ -163,6 +185,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ortho", default="tsqr", choices=["tsqr", "svqb"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the solve runs; 'cuda' with no card raises")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="persistent plan cache in front of --layout auto "
+                         "and --serve: a JSON store of planner results "
+                         "keyed by (pattern hash, P, machine fingerprint, "
+                         "the planner's arguments); a repeat pattern skips "
+                         "the planner")
+    ap.add_argument("--serve", default=None, metavar="REQUESTS.json",
+                    help="service mode: solve a JSON batch of requests "
+                         "({requests: [...], checkpoint_root, "
+                         "service_seed}); compatible requests share one "
+                         "panel as extra columns, each result bit-identical "
+                         "to serving it alone; planned over --n-row x "
+                         "--n-col shards (--family is not needed)")
+    ap.add_argument("--degraded-ok", action="store_true",
+                    help="on a failed solve, retry with one column group "
+                         "fewer (n_search - n_search // n_col on n_row x "
+                         "(n_col - 1)); a kernel's or the card's error is "
+                         "raised, never retried")
     return ap
 
 
@@ -179,15 +219,22 @@ def config_from_args(args) -> FDConfig:
                     ortho=args.ortho)
 
 
-def plan_auto(mat, fd: FDConfig, P: int, machine):
+def plan_auto(mat, fd: FDConfig, P: int, machine, plan_cache=None):
     """``--layout auto``: rank every split of ``P`` shards
     (``plan_layout`` on the axes of ``planner.auto_axes``, as the
-    reference CLI plans over its devices, ``repro/launch/solve.py:70-112``)
-    and return ``(fd', n_row, n_col, rowmap)`` for the best candidate."""
+    reference CLI plans over its devices, ``repro/launch/solve.py:70-112``;
+    behind the plan cache at ``plan_cache`` when given) and return
+    ``(fd', n_row, n_col, rowmap)`` for the best candidate."""
+    cache = PlanCache(plan_cache) if plan_cache else None
     t0 = time.perf_counter()
-    plan = plan_layout(mat, P, machine=machine, **auto_axes(fd, mat.D, P))
+    plan, hit = cached_plan_layout(mat, P, cache=cache, machine=machine,
+                                   **auto_axes(fd, mat.D, P))
     seconds = time.perf_counter() - t0
     best = plan.best
+    if cache is not None:
+        print(f"[plan-cache] {'hit' if hit else 'miss'} ({plan_cache}): "
+              f"hits={cache.hits} misses={cache.misses} "
+              f"plan_calls={cache.plan_calls}")
     print(plan.report())
     print(f"[auto] planned in {seconds:.3f} s on the host; running "
           f"{best.describe()} (spmv_overlap={best.overlap}, "
@@ -197,24 +244,126 @@ def plan_auto(mat, fd: FDConfig, P: int, machine):
     return config_for(fd, best), best.n_row, best.n_col, best.rowmap
 
 
+def device_fault(e: BaseException) -> bool:
+    """Whether ``e`` is a kernel's build or launch error or the card's: it
+    passed through the kernels package (``repro_torch/kernels``: the
+    build, a wrapper's refusal, a launch's error code, a plain version),
+    or CUDA raised it; its cause and context are searched too."""
+    kernels_dir = os.path.dirname(os.path.abspath(build.__file__))
+    cuda_errors = tuple(t for t in (getattr(torch.cuda, "OutOfMemoryError",
+                                            None),
+                                    getattr(torch, "AcceleratorError", None))
+                        if t is not None)
+    seen = set()
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, cuda_errors) or "CUDA" in str(e):
+            return True
+        tb = e.__traceback__
+        while tb is not None:
+            path = os.path.abspath(tb.tb_frame.f_code.co_filename)
+            if os.path.dirname(path) == kernels_dir:
+                return True
+            tb = tb.tb_next
+        e = e.__cause__ or e.__context__
+    return False
+
+
+def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
+          verbose: bool, degraded_ok: bool = False):
+    """Solve on an ``n_row × n_col`` grid; returns ``(solver, result)``.
+    With ``degraded_ok`` (the reference's ``repro/launch/solve.py:
+    120-135``) a failure that is not a kernel's or the card's
+    (:func:`device_fault`) is printed and the solve retried with one
+    column group fewer, ``n_search − n_search // n_col`` vectors on
+    ``n_row × (n_col − 1)`` shards of the same device with the same
+    kernel flag, the row map planned anew (the shard count changed)."""
+    try:
+        solver = FilterDiag(mat, fd, device=device, n_row=n_row,
+                            n_col=n_col, rowmap=rowmap)
+        return solver, solver.solve(verbose=verbose)
+    except Exception as e:  # noqa: BLE001 — degraded mode retries any fault
+        if not degraded_ok or n_col == 1 or device_fault(e):
+            raise
+        fd2 = dataclasses.replace(fd, n_search=fd.n_search
+                                  - fd.n_search // n_col)
+        print(f"[degraded] the solve on {n_row}x{n_col} failed "
+              f"({type(e).__name__}: {e}); retrying with n_search="
+              f"{fd2.n_search} on {n_row}x{n_col - 1}")
+        solver = FilterDiag(mat, fd2, device=device, n_row=n_row,
+                            n_col=n_col - 1)
+        return solver, solver.solve(verbose=verbose)
+
+
+def serve(args, machine, verbose: bool = True) -> dict:
+    """``--serve``: solve the requests of ``args.serve`` through the
+    service over ``--n-row · --n-col`` shards on ``--device``; prints the
+    plan cache's counts and each request's result and returns
+    ``{req_id: FDResult}``."""
+    with open(args.serve) as f:
+        spec = json.load(f)
+    cache = PlanCache(args.plan_cache) if args.plan_cache else None
+    svc = EigenService(n_shards=args.n_row * args.n_col, device=args.device,
+                       spmv_kernel=args.spmv_kernel,
+                       plan_cache=cache, machine=machine,
+                       ckpt_root=spec.get("checkpoint_root"),
+                       service_seed=int(spec.get("service_seed", 0)),
+                       verbose=verbose)
+    for r in spec["requests"]:
+        svc.submit(SolveRequest(
+            req_id=str(r["req_id"]), family=r["family"],
+            params=dict(r.get("params", {})),
+            n_target=int(r.get("n_target", 4)),
+            n_search=int(r.get("n_search", 16)),
+            target=float(r.get("target", 0.0)),
+            tol=float(r.get("tol", 1e-9)),
+            max_iters=int(r.get("max_iters", 40)),
+            seed=int(r.get("seed", 7))))
+    t0 = time.perf_counter()
+    results = svc.drain()
+    wall = time.perf_counter() - t0
+    if cache is not None:
+        print(f"[plan-cache] hits={cache.hits} misses={cache.misses} "
+              f"plan_calls={cache.plan_calls}")
+    for g in svc.groups:
+        print(f"[serve] group {g['requests']} on {g['cell']}: block width "
+              f"{g['width']}, bundle width {g['bundle_width']}, restarts "
+              f"{g['restarts']}, {g['wall_s']:.3f} s")
+    for rid in sorted(results):
+        r = results[rid]
+        print(f"[{rid}] converged {r.n_converged} in {r.iterations} "
+              f"iterations / {r.total_spmvs} SpMVs; eigenvalues "
+              f"{np.array2string(r.eigenvalues, precision=10)}")
+    print(f"served {len(results)} requests in {wall:.3f} s on {args.device}")
+    print("kernel launches:", ", ".join(f"{k}={v}"
+                                        for k, v in build.launches.items()))
+    return results
+
+
 def main(argv=None, verbose: bool = True):
-    """Parse ``argv``, solve, print the summary; returns the FDResult."""
+    """Parse ``argv``, solve, print the summary; returns the FDResult
+    (``--serve``: ``{req_id: FDResult}``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    fd = config_from_args(args)
-    mat = get_family(args.family, **parse_params(args.params))
-    n_row, n_col, rowmap = args.n_row, args.n_col, None
-    if args.layout == "auto":
+    machine = None
+    if args.layout == "auto" or args.serve:
         try:
             machine = pm.resolve_machine(args.machine)
         except ValueError as e:
             ap.error(str(e))
+    if args.serve:
+        return serve(args, machine, verbose=verbose)
+    if not args.family:
+        ap.error("--family is required (unless --serve is given)")
+    fd = config_from_args(args)
+    mat = get_family(args.family, **parse_params(args.params))
+    n_row, n_col, rowmap = args.n_row, args.n_col, None
+    if args.layout == "auto":
         fd, n_row, n_col, rowmap = plan_auto(mat, fd, n_row * n_col,
-                                             machine)
+                                             machine, args.plan_cache)
     t0 = time.perf_counter()
-    solver = FilterDiag(mat, fd, device=args.device, n_row=n_row,
-                        n_col=n_col, rowmap=rowmap)
-    res = solver.solve(verbose=verbose)
+    solver, res = solve(mat, fd, args.device, n_row, n_col, rowmap, verbose,
+                        degraded_ok=args.degraded_ok)
     wall = time.perf_counter() - t0
     print(f"converged {res.n_converged} eigenpairs in {res.iterations} "
           f"iterations / {res.total_spmvs} SpMVs ({wall:.3f} s on "

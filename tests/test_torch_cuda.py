@@ -689,3 +689,132 @@ def test_sstep_filter_on_the_card_bitwise(card, s, dtype):
             assert launched["ell_gather"] == P * (1 + split) + P * split * (
                 sell.n_groups(degree) - 1)
             assert launched["cheb_dia"] == 0
+
+
+# ---------------------------------------------- checkpoint and service --
+
+
+def test_checkpoint_restores_cuda_leaves_on_the_card(card, tmp_path):
+    """CUDA leaves saved and restored onto the card: the same bits, on the
+    card (the device given, or the template's when none is)."""
+    from repro_torch.checkpoint import restore, save
+
+    g = torch.Generator(device=card).manual_seed(3)
+    tree = {"V": torch.randn((1000, 16), generator=g, device=card,
+                             dtype=torch.float64),
+            "Z": torch.randn((300, 4), generator=g, device=card,
+                             dtype=torch.complex128),
+            "s": torch.randn((7,), generator=g, device=card,
+                             dtype=torch.float32)}
+    save(str(tmp_path), 3, tree, grid=(2, 2))
+    template = {k: torch.zeros_like(v) for k, v in tree.items()}
+    for device in ("cuda", None):
+        got, step, _ = restore(str(tmp_path), template, device=device)
+        assert step == 3
+        for k, v in tree.items():
+            assert got[k].is_cuda and got[k].dtype == v.dtype
+            assert torch.equal(got[k], v), k
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "complex128",
+                                   "complex64"])
+def test_2d_mu_equal_columns_give_the_1d_bits_on_the_card(card, dtype):
+    """``Y.addcmul_(T, mu[k])`` rounds as ``Y.add_(T, alpha=mu_k)`` on the
+    card too: a 2-D μ of equal columns gives the 1-D filter's bits, the
+    fused step in the DIA kernel."""
+    from repro_torch.core import (build_dist_ell, chebyshev_filter,
+                                  make_fused_cheb_step, make_spmv)
+
+    fam = Hubbard(n_sites=6, n_fermions=3) if "float" in dtype \
+        else Exciton(L=5)
+    ell = build_dist_ell(fam, 1, dtype=dtype, device=card)
+    g = torch.Generator(device=card).manual_seed(4)
+    V = torch.randn((ell.D_pad, 24), generator=g, device=card,
+                    dtype=ell.vals.dtype)
+    spmv = make_spmv(ell, use_kernel=True)
+    fused = make_fused_cheb_step(ell, use_kernel=True)
+    mu = np.random.default_rng(4).standard_normal(12)
+    n0 = build.launches["cheb_dia"]
+    want = chebyshev_filter(spmv, mu, 0.05, -0.1, V, fused_step=fused)
+    got = chebyshev_filter(spmv, np.repeat(mu[:, None], 24, axis=1), 0.05,
+                           -0.1, V, fused_step=fused)
+    torch.cuda.synchronize()
+    assert build.launches["cheb_dia"] == n0 + 2 * 10
+    assert torch.equal(got, want)
+
+
+def _service_drain(ids, cache):
+    from repro_torch.service import EigenService, SolveRequest
+
+    reqs = {"a": SolveRequest("a", family="SpinChainXXZ",
+                              params=dict(n_sites=10, n_up=5), n_target=4,
+                              n_search=16, target=-3.0, tol=1e-8,
+                              max_iters=40, seed=11),
+            "b": SolveRequest("b", family="SpinChainXXZ",
+                              params=dict(n_sites=10, n_up=5), n_target=3,
+                              n_search=16, target=0.0, tol=1e-8,
+                              max_iters=40, seed=22)}
+    svc = EigenService(n_shards=1, device="cuda", spmv_kernel=True,
+                       plan_cache=cache)
+    for i in ids:
+        svc.submit(reqs[i])
+    build.reset_launches()
+    out = svc.drain()
+    torch.cuda.synchronize()
+    return out, dict(build.launches), svc.groups[0]
+
+
+def _degrees(res):
+    return [h["degree"] for h in res.history if "degree" in h]
+
+
+def test_service_batch_equals_solo_on_the_card(card, tmp_path):
+    """A SpinChainXXZ(10,5) service on the card, kernels on (the DIA
+    step): each batched request equals its solo drain bit for bit, and the
+    shared sweep launches the DIA kernel once a step of the larger pending
+    degree, fewer times than the two solo drains together."""
+    from repro_torch.service import PlanCache
+
+    cache = PlanCache(str(tmp_path / "plans.json"))
+    both, launched, group = _service_drain(["a", "b"], cache)
+    solo, solo_launched = {}, {}
+    for rid in ("a", "b"):
+        out, solo_launched[rid], _ = _service_drain([rid], cache)
+        solo[rid] = out[rid]
+    assert cache.plan_calls == 1 and group["cell"] == "stack+krn(1x1)"
+    for rid in ("a", "b"):
+        r, s = both[rid], solo[rid]
+        assert np.array_equal(r.eigenvalues, s.eigenvalues), rid
+        assert np.array_equal(r.residuals, s.residuals), rid
+        assert (r.iterations, r.total_spmvs) == (s.iterations,
+                                                 s.total_spmvs), rid
+        assert _degrees(r) == _degrees(s), rid
+        # one DIA launch per fused step of the solo filters: T2 .. T_n
+        assert solo_launched[rid]["cheb_dia"] == sum(
+            d - 1 for d in _degrees(s))
+    da, db = _degrees(both["a"]), _degrees(both["b"])
+    n = max(len(da), len(db))
+    steps = [max(d[i] for d in (da, db) if i < len(d)) for i in range(n)]
+    assert launched["cheb_dia"] == sum(d - 1 for d in steps)
+    assert launched["cheb_dia"] < (solo_launched["a"]["cheb_dia"]
+                                   + solo_launched["b"]["cheb_dia"])
+
+
+class _FailingLaunches:
+    """A kernel library whose every entry reports a failed launch."""
+
+    def __getattr__(self, name):
+        return lambda *args: 719  # cudaErrorLaunchFailure
+
+
+def test_degraded_ok_raises_a_kernel_launch_error(card, monkeypatch):
+    from repro_torch.launch import solve as cli
+
+    build.load()
+    monkeypatch.setattr(build, "_lib", _FailingLaunches())
+    with pytest.raises(RuntimeError, match="CUDA error 719"):
+        cli.main(["--family", "SpinChainXXZ", "--params", "n_sites=8,n_up=4",
+                  "--n-target", "2", "--n-search", "8", "--target", "-1.5",
+                  "--tol", "1e-8", "--max-iters", "30", "--layout", "pillar",
+                  "--n-col", "2", "--spmv-kernel", "--degraded-ok"],
+                 verbose=False)
