@@ -188,7 +188,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      launches a fused step, the replayed iterations 20–29 twice);
    * the planned cell's filter operator through ``ell_gather`` and its
      epilogue entry at the batch's bundle width (128 / N_col), held
-     bit for bit to the plain versions, against cuSPARSE (kernel cases).
+     bit for bit to the plain versions, against cuSPARSE (kernel cases);
+9. analysis — the static communication checks (``repro_torch.analysis``)
+   on the card, kernels on, each engine's collectives and contractions
+   recorded in order (``CommTrace``):
+
+   * census cells, one FD macro-iteration each (TSQR, the redistribution,
+     a degree-8 filter, the way back, the Gram all-reduce) at full width:
+     Hubbard(12,6) fp64, N_s = 512, panel 2 × 2, a2a; HubNet(48000),
+     N_s = 64, stack 8 × 1, compressed-matching split-phase, at s = 1 and
+     s = 3; RoadNet(48000), N_s = 64, pillar 1 × 8 on the RCM map (stack
+     terms only). Each must attribute every collective to a predicted
+     term, with none missing, and launch the kernels (the record's
+     launches per cell, and the kernels' own counts over the cells for
+     ``ell_gather`` and ``ell_gather_cheb``); each logs its predicted
+     terms beside the measured multiset;
+   * the split-phase proof of the six engine combos (kernels off and on),
+     the s-step groups, and the round-pipeline proof on SpinChainXXZ(10,5)
+     over 4 shards and on the HubNet(48000) operator over 8 shards at
+     n_b = 64: every split-phase engine must pass on a real side stream;
+     the kernelized engines bit-equal to the plain ones;
+   * the negative controls, which must be caught: the plain engines fail
+     (B), ``pipeline=False`` fails (c), an exchange started after the
+     local blocks fails (A), an engine that drops its wait is a race, a
+     planted ``psum`` is unattributed and a skipped Gram is missing.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
@@ -261,6 +284,8 @@ BUNDLE_NB = dict(hubbard=N_SEARCH // 4, exciton=EX_N_SEARCH // EX_PILLAR[1],
 # iteration 30
 SVC_REQUESTS = (("a", RN_N_TARGET, 11), ("b", 8, 22))
 SVC_SHARDS, SVC_CKPT_INTERVAL, SVC_FAULT_AT = 8, 20, 30
+# the analysis phase's census filter degree
+ANALYSIS_DEGREE = 8
 # forced slab widths timed at Hubbard n_b = 512 (fp64) and Exciton
 # n_b = 384 (complex128)
 SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
@@ -2038,6 +2063,109 @@ def phase_service(records: list, fit_path: str, solves: dict,
                 ell_gather_cheb_per_step=per_step, runs=runs)
 
 
+def census_cell(records: list, label: str, matrix, **kw) -> list:
+    """One census cell on the card, kernels on (``run_census_cell``): its
+    predicted terms beside the measured multiset; its errors."""
+    import torch
+
+    from repro_torch.analysis import run_census_cell
+
+    t0 = time.perf_counter()
+    rep = run_census_cell(matrix, use_kernel=True, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    errors = list(rep.errors)
+    if rep.launches <= 0:
+        errors.append(f"[{rep.cell}] no kernel launched")
+    log(f"[analysis] census {label} in {seconds:.2f} s, {rep.launches} "
+        f"launches in the record:\n" + rep.describe())
+    for e in errors[len(rep.errors):]:
+        log(f"[analysis]   ERROR: {e}")
+    records.append(dict(
+        matrix=label, cell=rep.cell, ok=not errors, seconds=seconds,
+        launches=rep.launches,
+        predicted=[(t.label, t.kind, t.bytes, t.count)
+                   for t in rep.expected],
+        measured=[(c.name, c.kind, c.bytes, c.mult) for c in rep.measured],
+        errors=errors))
+    return errors
+
+
+def phase_analysis() -> dict:
+    """The static communication checks on the card, kernels on (phase 9):
+    the census cells, the proofs and their negative controls."""
+    import torch
+
+    from repro_torch.analysis import extra_psum, run_census_cell, skip_gram
+    from repro_torch.analysis.check_comm import (ProofOperator,
+                                                 check_kernel_parity,
+                                                 check_overlap,
+                                                 check_pipeline)
+    from repro_torch.core import plan_rowmap
+    from repro_torch.kernels import build
+    from repro_torch.matrices import HubNet, Hubbard, RoadNet, SpinChainXXZ
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    build.reset_launches()
+    cells: list = []
+    errors = census_cell(cells, "Hubbard(12,6)", Hubbard(**HUBBARD),
+                         P_total=LAYOUT_P, layout="panel", comm="a2a",
+                         n_s=N_SEARCH, degree=ANALYSIS_DEGREE)
+    hubnet = HubNet(**HUBNET)
+    for s in (1, SSTEP):
+        errors += census_cell(cells, "HubNet(48000)", hubnet, P_total=SSTEP_P,
+                              layout="stack", comm="compressed",
+                              schedule="matching", overlap=True,
+                              n_s=HN_N_SEARCH, degree=ANALYSIS_DEGREE,
+                              sstep=s)
+    roadnet = RoadNet(**ROADNET)
+    errors += census_cell(cells, "RoadNet(48000)", roadnet,
+                          P_total=RN_PILLAR[1], layout="pillar",
+                          n_s=RN_N_SEARCH, degree=ANALYSIS_DEGREE,
+                          rowmap=plan_rowmap(roadnet, RN_PILLAR[1],
+                                             reorder="rcm"))
+    del roadnet
+    # the kernels' own counts, not the record's: each was launched
+    census_launches = dict(build.launches)
+    for name in ("ell_gather", "ell_gather_cheb"):
+        if census_launches.get(name, 0) <= 0:
+            errors.append(f"the census cells launched {name} no time")
+    # the proofs, kernels off and on, on a real side stream; the plain
+    # engines' (B), pipeline=False's (c), the late start's (A) and the
+    # dropped wait's failures are checked inside
+    t0 = time.perf_counter()
+    proof_errors = []
+    for op, depths in ((ProofOperator(dev), (2, SSTEP)),
+                       (ProofOperator(dev, hubnet, P=SSTEP_P, n_b=HN_N_SEARCH,
+                                      label="HubNet(48000)"), (SSTEP,))):
+        proof_errors += check_overlap(dev, op, depths)
+        proof_errors += check_pipeline(dev, op)
+    proof_errors += check_kernel_parity(dev)
+    torch.cuda.synchronize()
+    proof_s = time.perf_counter() - t0
+    # the census's planted controls: an extra psum, a skipped Gram
+    spin = SpinChainXXZ(10, 5)
+    controls = {}
+    for name, wrap, want in (("extra psum", extra_psum, "unattributed"),
+                             ("skipped Gram", skip_gram, "missing")):
+        rep = run_census_cell(spin, P_total=8, comm="a2a", use_kernel=True,
+                              device="cuda", wrap=wrap)
+        caught = any(want in e for e in rep.errors)
+        controls[name] = dict(caught=caught, errors=rep.errors)
+        log(f"[analysis] control {name}: "
+            f"{'caught (' + want + ')' if caught else 'NOT CAUGHT'}")
+        if not caught:
+            proof_errors.append(f"the planted {name} was not reported "
+                                f"{want}")
+    errors += proof_errors
+    rec = dict(census=cells, census_launches=census_launches,
+               proof_seconds=proof_s, proof_errors=proof_errors,
+               controls=controls)
+    if errors:
+        raise SmokeFailure(f"analysis: {len(errors)} error(s): {errors[:3]}")
+    return rec
+
+
 def write_record(path: str, record: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2104,6 +2232,10 @@ def run(args) -> int:
     t0 = time.perf_counter()
     service = phase_service(records, fit_path, solves, out_dir)
     log(f"[service] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    analysis = phase_analysis()
+    analysis["seconds"] = time.perf_counter() - t0
+    log(f"[analysis] phase {analysis['seconds']:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
@@ -2131,7 +2263,7 @@ def run(args) -> int:
                                     checks=records, engines=engines,
                                     layouts=layouts, plan=plan,
                                     solves=solves, service=service,
-                                    kernels=line))
+                                    analysis=analysis, kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
         "check to the result")
     log(json.dumps({"kernels": line}))

@@ -14,7 +14,16 @@ ranpot = 1) operator in fp64 and times, with CUDA events after a warm-up:
 * ``step``: one fused Chebyshev step at n_b = 512 as that checkout's filter
   runs it (its ``make_fused_cheb_step``);
 * ``filter``: ``chebyshev_filter`` of degree 40 at n_b = 512, per step;
-* ``spmv512`` / ``spmv1``: ``make_spmv`` with the kernels on, n_b = 512, 1.
+* ``spmv512`` / ``spmv1``: ``make_spmv`` with the kernels on, n_b = 512, 1;
+* ``p8_step``: the RoadNet(48000) fused step at n_b = 64 over 8 row
+  shards through the compressed-cyclic split-phase engine (kernels on),
+  the launch- and host-bound step of the 8-shard solves, with no
+  ``CommTrace`` attached; ``p8_step_traced`` the same with one attached
+  (cleared after each step), where the checkout has ``CommTrace``;
+* ``p8_sstep``: a degree-9 s = 3 filter on the same operator and block
+  through the compressed-cyclic split-phase s-step groups (three groups,
+  kernels on), per filter, with no ``CommTrace`` attached, and
+  ``p8_sstep_traced`` with one attached, as above.
 
 Turns go in the order given, so that a drift of the card shows as a
 difference between two turns of one checkout. One JSON line per turn,
@@ -35,9 +44,10 @@ import json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, SRC)
-from repro_torch.core import (build_dist_ell, chebyshev_filter,
-                              make_fused_cheb_step, make_spmv)
-from repro_torch.matrices import Hubbard
+from repro_torch.core import (build_dist_ell, build_sstep_ell,
+                              chebyshev_filter, make_fused_cheb_step,
+                              make_spmv, make_sstep_cheb)
+from repro_torch.matrices import Hubbard, RoadNet
 
 def ms(fn, reps):
     fn(); torch.cuda.synchronize()
@@ -64,6 +74,37 @@ out["filter"] = t / 39
 out["spmv512"] = ms(lambda: spmv(x), 10)
 x1 = x[:, :1].contiguous()
 out["spmv1"] = ms(lambda: spmv(x1), 50)
+del ell, step, spmv, x, w2, x1
+rn = build_dist_ell(RoadNet(n=48000, w=2, m=1200, k=4), 8, dtype="float64",
+                    split_halo=True, device="cuda")
+xr, wr = (torch.randn((rn.D_pad, 64), generator=g, device="cuda",
+                      dtype=torch.float64) for _ in range(2))
+p8 = make_fused_cheb_step(rn, use_kernel=True, overlap=True,
+                          comm="compressed", pipeline=False)
+out["p8_step"] = ms(lambda: p8(xr, wr, 0.013, -0.4), 200)
+sell = build_sstep_ell(RoadNet(n=48000, w=2, m=1200, k=4), 8, 3,
+                       dtype="float64", d_pad=rn.D_pad, split_halo=True,
+                       device="cuda")
+ss = make_sstep_cheb(sell, use_kernel=True, overlap=True, comm="compressed",
+                     schedule="cyclic")
+mu9 = np.linspace(1.0, 0.5, 10)
+out["p8_sstep"] = ms(lambda: ss(xr, mu9, 0.013, -0.4), 50)
+try:
+    from repro_torch.core.shards import CommTrace
+except ImportError:
+    CommTrace = None
+if CommTrace is not None:
+    for key, fn, group, reps in (
+            ("p8_step", lambda: p8(xr, wr, 0.013, -0.4), p8.group, 200),
+            ("p8_sstep", lambda: ss(xr, mu9, 0.013, -0.4), ss.group, 50)):
+        trace = CommTrace().attach(group)
+
+        def traced():
+            fn()
+            trace.clear()
+
+        out[key + "_traced"] = ms(traced, reps)
+        CommTrace.detach(group)
 print(json.dumps(out), flush=True)
 """
 

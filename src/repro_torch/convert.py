@@ -26,7 +26,12 @@ same state:
 * the draws of a batched service group: the Lanczos start vector from
   ``jax.random.split(PRNGKey(service_seed))[0]`` and each request's search
   block from ``split(PRNGKey(seed))[1]``, as ``BatchedJob``'s ``v0`` and
-  ``V0``.
+  ``V0``;
+* the census's values: the reference's predicted ``ExpectedTerm`` lists
+  and measured ``CollectiveOp`` multisets (objects, or dicts of their
+  fields, as a subprocess hands them over), as the port's
+  ``analysis.census`` types, so either side's ``attribute`` can take
+  them.
 
 Each function that makes tensors puts them on ``device``: the card unless
 ``"cpu"`` is given. The planner's converters take the reference's
@@ -43,6 +48,7 @@ from .core.metrics import ChiMetrics
 from .core.partition import RowMap
 from .core.planner import Candidate, Plan, SpmvCommPlan
 from .core.sketch import ChiBand, SampledCommEstimate
+from .analysis.census import CollectiveOp, ExpectedTerm
 from .core.spmv import DistEll, NeighborPlan, SstepEll, SstepNeighbor
 from .device import resolve_device
 from .kernels.ops import DiaPlan
@@ -367,3 +373,28 @@ def batch_draws_from_arrays(v0, V0_by_request: dict) -> dict:
     equal-rows partition's positions) or ``[D, n_search]`` (row order)."""
     return dict(v0=np.array(v0, dtype=np.float64).reshape(-1, 1),
                 V0={str(rid): np.array(V) for rid, V in V0_by_request.items()})
+
+
+def _field(o, name: str):
+    return o[name] if isinstance(o, dict) else getattr(o, name)
+
+
+def expected_terms_from_fields(terms) -> list:
+    """The reference's ``ExpectedTerm`` list as the port's (label, kind,
+    bytes, count, alt_bytes)."""
+    return [ExpectedTerm(label=_field(t, "label"), kind=_field(t, "kind"),
+                         bytes=int(_field(t, "bytes")),
+                         count=float(_field(t, "count")),
+                         alt_bytes=tuple(int(b) for b in
+                                         _field(t, "alt_bytes")))
+            for t in terms]
+
+
+def collective_ops_from_fields(ops) -> list:
+    """The reference's measured ``CollectiveOp`` multiset (compiled HLO) as
+    the port's ``CollectiveOp`` list."""
+    return [CollectiveOp(kind=_field(o, "kind"), bytes=int(_field(o, "bytes")),
+                         mult=float(_field(o, "mult")),
+                         name=str(_field(o, "name")),
+                         computation=str(_field(o, "computation")))
+            for o in ops]

@@ -70,7 +70,8 @@ def make_tsqr(group: ShardGroup):
         for lvl in range(levels):
             bit = 1 << lvl
             R_peer = group.ppermute(torch.stack(Rs),
-                                    [(i, i ^ bit) for i in range(P)])
+                                    [(i, i ^ bit) for i in range(P)],
+                                    label=f"tsqr[{lvl}]")
             new_R = []
             for p in range(P):
                 lo = (p & bit) == 0
@@ -97,8 +98,8 @@ def make_gram(group: ShardGroup | None):
         return gram
 
     def gram_group(V, W):
-        return group.psum(gram(group.shard(V, p), group.shard(W, p))
-                          for p in range(group.P))
+        return group.psum((gram(group.shard(V, p), group.shard(W, p))
+                           for p in range(group.P)), label="gram")
 
     return gram_group
 

@@ -150,6 +150,13 @@ class SpmvCommPlan:
             n_vm = np.diff(_equal_rows(self.D, self.n_row, self.d_pad)[0])
         return chi_from_nvc(self.n_vc, n_vm, self.D)
 
+    def a2a_bytes_per_device(self, n_b: int, S_d: int) -> int:
+        """Operand bytes of one SpMV's all_to_all on each shard (the
+        ``[P, L, n_b]`` send buffer)."""
+        if self.n_row <= 1:
+            return 0
+        return self.n_row * self.L * n_b * S_d
+
     def permute_schedule(self, schedule: str = "cyclic",
                          ) -> tuple[tuple[tuple[tuple[int, int], ...], ...],
                                     tuple[int, ...]]:
@@ -202,6 +209,25 @@ class SpmvCommPlan:
         if comm != "compressed":
             raise ValueError(f"unknown comm engine {comm!r}")
         return len(self.permute_schedule(schedule)[1])
+
+    def spmv_collectives(self, comm: str, schedule: str, n_b: int, S_d: int
+                         ) -> tuple[tuple[str, int, int], ...]:
+        """``(kind, operand bytes, count)`` terms of ONE SpMV's halo
+        exchange, per shard, in the reference's HLO names (its
+        ``spmv_collectives``, the census's contract;
+        ``repro_torch.analysis.census``): ``"a2a"`` one ``all-to-all`` over
+        the padded ``[P, L, n_b]`` send buffer, ``"compressed"`` one
+        ``collective-permute`` per ``schedule`` round of ``round_L[r]·n_b``
+        slots; nothing for a zero-halo partition (L = 0 or one shard)."""
+        if self.n_row <= 1 or self.L == 0:
+            return ()
+        if comm == "a2a":
+            return (("all-to-all", self.n_row * self.L * n_b * S_d, 1),)
+        if comm != "compressed":
+            raise ValueError(f"unknown comm engine {comm!r}")
+        _, round_L = self.permute_schedule(schedule)
+        return tuple(("collective-permute", Lk * n_b * S_d, 1)
+                     for Lk in round_L)
 
     # ----------------------------------------------------- s-step stats --
 

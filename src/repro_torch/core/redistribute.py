@@ -85,6 +85,20 @@ def make_redistribute(group: ShardGroup, n_col: int, impl: str = "explicit"):
             for j in range(n_col):
                 yield rows, j, slice(j * n_c, (j + 1) * n_c), j != b % n_col
 
+    def record(n_bytes: int, D_pad: int, n_c: int, forward: bool, src,
+               dst) -> None:
+        """Count one move; its trace entry reads ``src`` (a tensor or the
+        bundles) and writes ``dst``, a shard's operand its full slice."""
+        S = dst.element_size()
+        traced = group.trace is not None
+        group._record("redistribute", n_bytes,
+                      label=("redistribute[to_panel]" if forward
+                             else "redistribute[to_stack]"),
+                      operand_bytes=D_pad // P * n_col * n_c * S,
+                      reads=() if not traced else (src,) if forward
+                      else tuple(src),
+                      writes=(dst,))
+
     def explicit(dst, src, D_pad: int, n_c: int, forward: bool) -> None:
         """Tile by tile; counts the tiles that leave their device."""
         moved = 0
@@ -94,17 +108,18 @@ def make_redistribute(group: ShardGroup, n_col: int, impl: str = "explicit"):
             else:
                 dst[rows, cols] = src[j][rows]
             moved += leaves * (rows.stop - rows.start) * n_c
-        group._record("redistribute", moved * dst.element_size())
+        record(moved * dst.element_size(), D_pad, n_c, forward, src, dst)
 
-    def gspmd(D_pad: int, n_c: int, S: int) -> None:
-        group._record("redistribute", (n_col - 1) * D_pad * n_c * S)
+    def gspmd(dst, src, D_pad: int, n_c: int, forward: bool) -> None:
+        record((n_col - 1) * D_pad * n_c * dst.element_size(), D_pad, n_c,
+               forward, src, dst)
 
     def to_panel(V: torch.Tensor) -> torch.Tensor:
         D_pad, N_s = V.shape
         _, n_c = shape(D_pad, N_s)
         if impl == "gspmd":
             out = V.reshape(D_pad, n_col, n_c).permute(1, 0, 2).contiguous()
-            gspmd(D_pad, n_c, V.element_size())
+            gspmd(out, V, D_pad, n_c, True)
         else:
             out = V.new_empty((n_col, D_pad, n_c))
             explicit(out, V, D_pad, n_c, True)
@@ -118,7 +133,7 @@ def make_redistribute(group: ShardGroup, n_col: int, impl: str = "explicit"):
         shape(D_pad, n_col * n_c)
         if impl == "gspmd":
             out = torch.cat(tuple(bundles), dim=1)
-            gspmd(D_pad, n_c, out.element_size())
+            gspmd(out, bundles, D_pad, n_c, False)
         else:
             out = bundles[0].new_empty((D_pad, n_col * n_c))
             explicit(out, bundles, D_pad, n_c, False)

@@ -36,43 +36,189 @@ contraction. The buffers an exchange writes are allocated on the current
 stream before it starts, and the engines wait on every exchange they
 start before they return, so no block is freed or reused while the side
 stream still touches it. On the CPU the same code runs in order.
+
+A :class:`CommTrace` attached to a group (:meth:`CommTrace.attach`, the
+one way in) keeps the order of what the group issues,
+one :class:`CommEntry` each: every collective, every ``start`` and
+``wait``, and the contractions and copies the engines note
+(:meth:`ShardGroup.contraction`, :meth:`ShardGroup.copy`), with the byte
+ranges of the storages each reads and writes and its logical stream
+(``side`` inside :meth:`ShardGroup.start`, ``main`` otherwise; on the
+card also whether that was the real side stream). ``repro_torch.
+analysis`` holds the census and the dependence proofs over the record.
+With no trace attached (the default) a group makes no entry and does
+what it did without one: no extra device work, no sync, and the same
+``bytes`` and ``calls`` either way.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["ShardGroup", "ShardGrid", "Pending", "COLLECTIVES"]
+__all__ = ["ShardGroup", "ShardGrid", "Pending", "COLLECTIVES",
+           "CommTrace", "CommEntry", "byte_ranges"]
 
 #: The collective kinds whose bytes a group counts.
 COLLECTIVES = ("all_to_all", "ppermute", "psum", "redistribute")
+
+#: Strided views with more contiguous runs than this are recorded as the
+#: one range from their first to their last byte (a superset: it can add
+#: a dependence, never hide one).
+MAX_RUNS = 4096
+
+
+def byte_ranges(t: torch.Tensor) -> tuple:
+    """The bytes ``t`` covers: ``(storage, start, stop)`` triples, sorted
+    and merged, ``storage`` the device and address of its storage.
+    ``x[:, :R]`` and ``x[:, R:]`` of one ``[P, R + H, n]`` block give
+    disjoint ranges."""
+    if t.numel() == 0:
+        return ()
+    es = t.element_size()
+    key = (str(t.device), t.untyped_storage().data_ptr())
+    base = t.storage_offset()
+    dims = sorted(((st, sz) for sz, st in zip(t.shape, t.stride()) if sz > 1),
+                  reverse=True)
+    run = 1
+    while dims and dims[-1][0] == run:  # fold the contiguous inner dims
+        run *= dims.pop()[1]
+    n_runs = int(np.prod([sz for _, sz in dims])) if dims else 1
+    if n_runs > MAX_RUNS:
+        stop = base + sum((sz - 1) * st for st, sz in dims) + run
+        return ((key, base * es, stop * es),)
+    starts = np.zeros(1, dtype=np.int64)
+    for st, sz in dims:
+        starts = (starts[:, None] + st * np.arange(sz)).reshape(-1)
+    starts = np.sort(starts) + base
+    out, lo, hi = [], int(starts[0]), int(starts[0]) + run
+    for a in starts[1:].tolist():
+        if a <= hi:
+            hi = max(hi, a + run)
+        else:
+            out.append((key, lo * es, hi * es))
+            lo, hi = a, a + run
+    out.append((key, lo * es, hi * es))
+    return tuple(out)
+
+
+def _ranges(tensors) -> tuple:
+    out = []
+    for t in tensors:
+        if t is not None:
+            out.extend(byte_ranges(t))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class CommEntry:
+    """One entry of a :class:`CommTrace`, in issue order.
+
+    ``kind`` is a collective of :data:`COLLECTIVES`, ``"start"``,
+    ``"wait"``, ``"contract"`` or ``"copy"``; ``label`` names the call
+    site (``halo``, ``halo-round[k]``, ``sstep-exchange[g]``,
+    ``tsqr[level]``, ``gram``, ``redistribute[to_panel]``, a contraction's
+    phase ``full``, ``local``, ``halo``, ``round[k]``, ``step[j]`` ...).
+    ``n_bytes`` is what the group counted under ``kind``,
+    ``operand_bytes`` one shard's operand; ``pending`` the id of a
+    ``start``/``wait`` pair, and of the exchange a ``side`` entry belongs
+    to; ``reads``/``writes`` the :func:`byte_ranges` of the storages;
+    ``launches`` the kernel launches of a contraction; ``real_side``
+    whether a ``side`` entry ran on a real CUDA side stream."""
+
+    index: int
+    group: str
+    P: int
+    kind: str
+    label: str
+    stream: str = "main"
+    n_bytes: int = 0
+    operand_bytes: int = 0
+    pending: int | None = None
+    reads: tuple = ()
+    writes: tuple = ()
+    launches: int = 0
+    real_side: bool = False
+
+    @property
+    def collective(self) -> bool:
+        return self.kind in COLLECTIVES
+
+
+class CommTrace:
+    """The ordered record of the collectives, exchanges and contractions
+    of the groups it is attached to (module docstring)."""
+
+    def __init__(self):
+        self.entries: list[CommEntry] = []
+        self._pendings = 0
+
+    def attach(self, target) -> "CommTrace":
+        """Record ``target``'s issue: a :class:`ShardGroup`, or both groups
+        of a :class:`ShardGrid` (or of a ``FilterDiag``'s ``grid``)."""
+        for g in _groups(target):
+            g.trace = self
+        return self
+
+    @staticmethod
+    def detach(target) -> None:
+        for g in _groups(target):
+            g.trace = None
+
+    def clear(self) -> None:
+        self.entries.clear()
+
+    def new_pending(self) -> int:
+        self._pendings += 1
+        return self._pendings
+
+    def append(self, group: "ShardGroup", kind: str, label: str,
+               **fields) -> CommEntry:
+        e = CommEntry(index=len(self.entries), group=group.name, P=group.P,
+                      kind=kind, label=label, **fields)
+        self.entries.append(e)
+        return e
+
+
+def _groups(target) -> list:
+    if isinstance(target, ShardGroup):
+        return [target]
+    grid = getattr(target, "grid", target)
+    return list({id(g): g for g in (grid.stack, grid.panel)}.values())
 
 
 @dataclasses.dataclass
 class Pending:
     """An exchange started by :meth:`ShardGroup.start`: its result and,
-    on the card, the event recorded on the side stream after it."""
+    on the card, the event recorded on the side stream after it; ``id``
+    pairs it with its ``wait`` in a :class:`CommTrace`."""
 
     result: object
     event: torch.cuda.Event | None = None
+    id: int | None = None
 
 
 class ShardGroup:
     """``P`` row shards of the stack layout on ``device`` (the card unless
-    ``"cpu"`` is given)."""
+    ``"cpu"`` is given). ``name`` labels its entries in ``trace`` (a
+    :class:`CommTrace` set by :meth:`CommTrace.attach`; None, no record,
+    until then)."""
 
-    def __init__(self, P: int, device=None):
+    def __init__(self, P: int, device=None, name: str = "stack"):
         if int(P) < 1:
             raise ValueError(f"a shard group needs P >= 1, got {P}")
         self.P = int(P)
         self.device = resolve_device(device)
+        self.name = name
+        self.trace: CommTrace | None = None
         self.bytes = dict.fromkeys(COLLECTIVES, 0)
         self.calls = dict.fromkeys(COLLECTIVES, 0)
         self._side: torch.cuda.Stream | None = None
         self._index: dict = {}
+        self._pending: int | None = None  # the exchange running on the side
 
     def __repr__(self) -> str:
         return f"ShardGroup(P={self.P}, device={self.device})"
@@ -96,9 +242,40 @@ class ShardGroup:
             self.bytes[k] = 0
             self.calls[k] = 0
 
-    def _record(self, kind: str, n_bytes: int) -> None:
+    def _record(self, kind: str, n_bytes: int, *, label: str | None = None,
+                operand_bytes: int = 0, reads=(), writes=()) -> None:
         self.bytes[kind] += int(n_bytes)
         self.calls[kind] += 1
+        if self.trace is not None:
+            self._note(kind, label or kind, n_bytes=int(n_bytes),
+                       operand_bytes=int(operand_bytes), reads=_ranges(reads),
+                       writes=_ranges(writes))
+
+    def _note(self, kind: str, label: str, **fields) -> None:
+        """One entry in the trace, on the stream it is issued to."""
+        if self._pending is not None:
+            fields.update(stream="side", pending=self._pending,
+                          real_side=bool(
+                              self._side is not None
+                              and torch.cuda.current_stream(self.device)
+                              == self._side))
+        self.trace.append(self, kind, label, **fields)
+
+    def contraction(self, label: str, reads=(), writes=(),
+                    launches: int = 0) -> None:
+        """Note in the trace a contraction phase of an engine (every
+        shard's part of one block, ``launches`` kernel launches). Callers
+        test ``trace is not None`` first, so that no argument is built
+        without one."""
+        self._note("contract", label, reads=_ranges(reads),
+                   writes=_ranges(writes), launches=int(launches))
+
+    def copy(self, label: str, reads=(), writes=()) -> None:
+        """Note in the trace a copy that carries an exchange's data (ghost
+        rows into the extended blocks, a payload); guarded as
+        :meth:`contraction` is."""
+        self._note("copy", label, reads=_ranges(reads),
+                   writes=_ranges(writes))
 
     def _cached(self, key, build):
         """A gather index built once per plan array (``key[1]`` is the
@@ -113,7 +290,8 @@ class ShardGroup:
     # ------------------------------------------------------- collectives --
 
     def all_to_all(self, x: torch.Tensor, send_idx: torch.Tensor,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
+                   out: torch.Tensor | None = None,
+                   label: str = "halo") -> torch.Tensor:
         """The halo ``all_to_all``: ``recv [P, P·L, n_b]`` in which
         receiver p's buffer holds, sender by sender, the rows
         ``send_idx[q, p]`` of shard q (``send_idx [P, P, L]``, local row
@@ -136,18 +314,21 @@ class ShardGroup:
 
             for p, idx in enumerate(self._cached(("a2a", send_idx, R), build)):
                 torch.index_select(x, 0, idx, out=out[p])
-        self._record("all_to_all", P * P * L * nb * x.element_size())
+        S = x.element_size()
+        self._record("all_to_all", P * P * L * nb * S, label=label,
+                     operand_bytes=P * L * nb * S, reads=(x,), writes=(out,))
         return out
 
     def gather_ppermute(self, x: torch.Tensor, send_rows: torch.Tensor,
                         perm, out: torch.Tensor | None = None,
-                        key=None) -> torch.Tensor:
+                        key=None, label: str | None = None) -> torch.Tensor:
         """One compressed round: ``jnp.take(x_q, send_rows[q])`` on every
         sender q, then ``ppermute`` by ``perm`` (``(src, dst)`` pairs).
         ``send_rows [P, L_r]`` local row indices; the result
         ``[P, L_r, n_b]`` (into ``out``, each receiver's block contiguous)
         holds zeros for a receiver outside ``perm``. ``key`` names the
-        round for the index cache."""
+        round for the index cache (and the trace's label,
+        ``halo-round[key]``, unless ``label`` is given)."""
         P, R, nb = self.P, self.rows(x), x.shape[1]
         Lr = int(send_rows.shape[1])
         if out is None:
@@ -165,19 +346,25 @@ class ShardGroup:
                 torch.index_select(x, 0, idx[d], out=out[d])
             else:
                 out[d].zero_()
-        self._record("ppermute", P * Lr * nb * x.element_size())
+        S = x.element_size()
+        self._record("ppermute", P * Lr * nb * S,
+                     label=label or f"halo-round[{key}]",
+                     operand_bytes=Lr * nb * S, reads=(x,), writes=(out,))
         return out
 
-    def ppermute(self, seg: torch.Tensor, perm) -> torch.Tensor:
+    def ppermute(self, seg: torch.Tensor, perm,
+                 label: str = "ppermute") -> torch.Tensor:
         """``lax.ppermute`` of ``seg [P, ...]``: ``out[dst] = seg[src]`` for
         each pair of ``perm``, zeros for the other receivers."""
         out = torch.zeros_like(seg)
         for s, d in perm:
             out[int(d)] = seg[int(s)]
-        self._record("ppermute", seg.numel() * seg.element_size())
+        n = seg.numel() * seg.element_size()
+        self._record("ppermute", n, label=label, operand_bytes=n // self.P,
+                     reads=(seg,), writes=(out,))
         return out
 
-    def psum(self, parts) -> torch.Tensor:
+    def psum(self, parts, label: str = "psum") -> torch.Tensor:
         """The all-reduce of one part per shard, summed in shard order."""
         parts = list(parts)
         if len(parts) != self.P:
@@ -185,30 +372,48 @@ class ShardGroup:
         acc = parts[0]
         for part in parts[1:]:
             acc = acc + part
-        self._record("psum", sum(p.numel() * p.element_size() for p in parts))
+        self._record("psum", sum(p.numel() * p.element_size() for p in parts),
+                     label=label,
+                     operand_bytes=parts[0].numel() * parts[0].element_size(),
+                     reads=parts, writes=(acc,))
         return acc
 
     # ------------------------------------------------------ split phase --
 
-    def start(self, fn) -> Pending:
+    def _run_side(self, fn, pid):
+        if pid is None:
+            return fn()
+        self._pending = pid
+        try:
+            return fn()
+        finally:
+            self._pending = None
+
+    def start(self, fn, label: str = "exchange") -> Pending:
         """Run ``fn()`` (an exchange) on the side stream after the work
         already queued on the current one; on the CPU, run it now."""
+        pid = None
+        if self.trace is not None:
+            pid = self.trace.new_pending()
+            self._note("start", label, pending=pid)
         if self.device.type != "cuda":
-            return Pending(fn())
+            return Pending(self._run_side(fn, pid), id=pid)
         main = torch.cuda.current_stream(self.device)
         if self._side is None:
             self._side = torch.cuda.Stream(device=self.device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            result = fn()
+            result = self._run_side(fn, pid)
             event = torch.cuda.Event()
             event.record(self._side)
-        return Pending(result, event)
+        return Pending(result, event, pid)
 
     def wait(self, pending: Pending):
         """Order the current stream after ``pending``; its result."""
         if pending.event is not None:
             torch.cuda.current_stream(self.device).wait_event(pending.event)
+        if self.trace is not None:
+            self._note("wait", "wait", pending=pending.id)
         return pending.result
 
 
@@ -229,10 +434,10 @@ class ShardGrid:
         if self.n_row < 1 or self.n_col < 1:
             raise ValueError(f"a grid needs n_row, n_col >= 1, got "
                              f"{n_row}x{n_col}")
-        self.stack = ShardGroup(self.n_row * self.n_col, device)
+        self.stack = ShardGroup(self.n_row * self.n_col, device, "stack")
         self.device = self.stack.device
         self.panel = (self.stack if self.n_col == 1
-                      else ShardGroup(self.n_row, self.device))
+                      else ShardGroup(self.n_row, self.device, "panel"))
 
     @property
     def P(self) -> int:

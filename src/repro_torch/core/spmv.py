@@ -191,6 +191,11 @@ class NeighborPlan:
         """Rows each shard receives per SpMV column (Σ_r L_r)."""
         return int(sum(self.round_L))
 
+    def scheduled_pairs(self) -> tuple[tuple[int, int], ...]:
+        """Every ``(src, dst)`` pair of every round, in round order (what
+        ``repro_torch.analysis.plan_lint`` reads)."""
+        return tuple(p for perm in self.perms for p in perm)
+
 
 def _np(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
@@ -677,19 +682,27 @@ class _Engine:
         acc = None  # the plain version's [P, R, n_b] accumulator
         started = False  # the kernels' accumulator (out) holds a block
 
-        def phase(blk, src, last):
+        def phase(blk, src, last, label):
             """Contract ``blk`` against ``src [P, Rx, n_b]`` into the
-            accumulator; ``last`` carries the epilogue."""
+            accumulator; ``last`` carries the epilogue. ``label`` names
+            the phase in the group's trace (one entry a phase, whatever
+            the launches)."""
             nonlocal acc, started
             e = epi if last else None
+            prior = acc if not kernel else out if started else None
             if not kernel:
                 acc = _contract_plain(blk, src, acc, e)
-                return
-            for p in range(P):
-                ep = None if e is None else (e[0][p], e[1][p], e[2], e[3])
-                _contract(blk, p, src[p], out[p] if started else None, ep,
-                          out[p])
-            started = True
+            else:
+                for p in range(P):
+                    ep = None if e is None else (e[0][p], e[1][p], e[2], e[3])
+                    _contract(blk, p, src[p], out[p] if started else None,
+                              ep, out[p])
+                started = True
+            if g.trace is not None:
+                g.contraction(label, reads=(src, prior) + (
+                    (e[0], e[1]) if e is not None else ()),
+                    writes=(out if kernel else acc,),
+                    launches=P if kernel else 0)
 
         def result():
             return (out if kernel else acc).view(P * R, nb)
@@ -702,22 +715,22 @@ class _Engine:
                 xfull = x.new_empty((P, R + self.H, nb))
                 xfull[:, :R] = xs
                 self._exchange_into(x, xfull[:, R:])
-                phase(self.full, xfull, True)
+                phase(self.full, xfull, True, "full")
             else:
-                phase(self.full, xs, True)
+                phase(self.full, xs, True, "full")
             return result()
 
         halo = x.new_empty((P, self.H, nb)) if exchanging else None
         if self.mode == "split":
-            pend = (g.start(lambda: self._exchange_into(x, halo))
+            pend = (g.start(lambda: self._exchange_into(x, halo), "halo")
                     if exchanging else None)
             has_halo = self.halo.W > 0
             # the local blocks contract while the exchange is in flight
-            phase(self.local, xs, not has_halo)
+            phase(self.local, xs, not has_halo, "local")
             if pend is not None:
                 g.wait(pend)
             if has_halo:
-                phase(self.halo, halo, True)
+                phase(self.halo, halo, True, "halo")
             return result()
 
         # pipelined: each round on the side stream with its own event;
@@ -725,23 +738,24 @@ class _Engine:
         # <= k once it has landed, while later rounds are in flight
         ends = self.ends
         pends = ([g.start(lambda k=k: self._exchange_into(
-                     x, halo[:, ends[k]:ends[k + 1]], k))
+                     x, halo[:, ends[k]:ends[k + 1]], k), f"halo-round[{k}]")
                   for k in range(len(self.rounds))] if exchanging else [])
         live = [k for k, b in enumerate(self.round_blocks) if b.W > 0]
-        phase(self.local, xs, not (live and exchanging))
+        phase(self.local, xs, not (live and exchanging), "local")
         for k, pend in enumerate(pends):
             g.wait(pend)
             if k in live:
                 phase(self.round_blocks[k], halo[:, :ends[k + 1]],
-                      k == live[-1])
+                      k == live[-1], f"round[{k}]")
         return result()
 
 
-def _dia_step(ell: DistEll):
+def _dia_step(ell: DistEll, group: ShardGroup):
     """The whole fused step per shard in the DIA kernel, for a comm-free
     operator (P = 1 or L = 0) whose every shard ``ops.plan_dia`` accepts;
     None otherwise. The step carries its per-shard plans (a list) as
-    ``step.dia``."""
+    ``step.dia``; it notes one contraction (``full``) in ``group``'s
+    trace."""
     if not (ell.P == 1 or ell.L == 0):
         return None
     dias = [ops.plan_dia(ell.cols[p], ell.vals[p], ell.R, device=ell.device)
@@ -758,6 +772,9 @@ def _dia_step(ell: DistEll):
             sl = slice(p * R, (p + 1) * R)
             ops.cheb_dia(offs, dv, w1[sl], w1[sl], w2[sl], alpha, beta,
                          compact=cp, span=span, out=out[sl])
+        if group.trace is not None:
+            group.contraction("full", reads=(w1, w2), writes=(out,),
+                              launches=len(forms) if out.is_cuda else 0)
         return out
 
     step_dia.dia = dias
@@ -788,14 +805,14 @@ def make_spmv(ell: DistEll, *, group: ShardGroup | None = None,
     ``ops.ell_spmv`` (the CUDA kernel for CUDA tensors, reading the
     padding-free forms built here, once); otherwise the plain version
     runs. All engines give the same result bit for bit. The closure
-    carries ``spmv.exchange(x)`` (the halo exchange alone) and
-    ``spmv.kind``, the engine's name."""
+    carries ``spmv.exchange(x)`` (the halo exchange alone),
+    ``spmv.kind``, the engine's name, and ``spmv.group``."""
     eng = _engine(ell, group, use_kernel, overlap, comm, schedule, pipeline)
 
     def spmv(x):
         return eng(x)
 
-    spmv.exchange, spmv.kind = eng.exchange, eng.kind
+    spmv.exchange, spmv.kind, spmv.group = eng.exchange, eng.kind, eng.group
     return spmv
 
 
@@ -815,15 +832,15 @@ def make_fused_cheb_step(ell: DistEll, *, group: ShardGroup | None = None,
     step carries its per-shard plans (a list) as ``step.dia``."""
     eng = _engine(ell, group, use_kernel, overlap, comm, schedule, pipeline)
     if use_kernel:
-        step_dia = _dia_step(ell)
+        step_dia = _dia_step(ell, eng.group)
         if step_dia is not None:
-            step_dia.kind = "dia"
+            step_dia.kind, step_dia.group = "dia", eng.group
             return step_dia
 
     def step(w1, w2, alpha, beta):
         return eng(w1, epilogue=(w1, w2, alpha, beta))
 
-    step.exchange, step.kind = eng.exchange, eng.kind
+    step.exchange, step.kind, step.group = eng.exchange, eng.kind, eng.group
     return step
 
 
@@ -1256,32 +1273,46 @@ class _SstepGroup:
             cl, vl, cp, vp = sell.split()
             self.local = _block(cl, vl, use_kernel)
             self.post = _block(cp, vp, use_kernel)
+        self.n_exchanged = 0  # the exchange's index in its filter (traces)
 
     def _exchange_into(self, payload, buf, ghosts):
         """The depth-s exchange of ``payload [P·R, W]`` into the receive
         buffers ``buf [P, X, W]``, then each shard's ghosts into
         ``ghosts [P·G, W]`` (both allocated by the caller)."""
-        g = self.group
+        g, label = self.group, f"sstep-exchange[{self.n_exchanged}]"
         if self.comm == "a2a":
-            g.all_to_all(payload, self.sell.send_idx, out=buf)
+            g.all_to_all(payload, self.sell.send_idx, out=buf, label=label)
         else:
             for k, (perm, rows) in enumerate(self.rounds):
                 a = self.ends[k]
                 g.gather_ppermute(payload, rows, perm, key=k,
-                                  out=buf[:, a:a + rows.shape[1]])
+                                  out=buf[:, a:a + rows.shape[1]],
+                                  label=f"{label}.round[{k}]")
         torch.index_select(buf.view(-1, buf.shape[2]), 0, self.ghost_idx,
                            out=ghosts)
+        if g.trace is not None:
+            g.copy("ghost-gather", reads=(buf,), writes=(ghosts,))
 
-    def _contract(self, blk: _Block, x, y0, epilogue, kernel: bool, out=None):
+    def _contract(self, blk: _Block, x, y0, epilogue, kernel: bool, out=None,
+                  label: str = "step"):
         """``y0 + A·x`` of every shard's part of ``blk`` (``x [P, Rx, n_b]``,
         ``y0`` and the epilogue's blocks ``[P, rows, n_b]``), one kernel
-        launch per shard into ``out``, or the plain version at once."""
+        launch per shard into ``out``, or the plain version at once;
+        ``label`` names the phase in the group's trace."""
         if not kernel:
-            return _contract_plain(blk, x, y0, epilogue)
-        for p in range(self.sell.P):
-            ep = (None if epilogue is None else
-                  (epilogue[0][p], epilogue[1][p], epilogue[2], epilogue[3]))
-            _contract(blk, p, x[p], None if y0 is None else y0[p], ep, out[p])
+            out = _contract_plain(blk, x, y0, epilogue)
+        else:
+            for p in range(self.sell.P):
+                ep = (None if epilogue is None else
+                      (epilogue[0][p], epilogue[1][p], epilogue[2],
+                       epilogue[3]))
+                _contract(blk, p, x[p], None if y0 is None else y0[p], ep,
+                          out[p])
+        if self.group.trace is not None:
+            self.group.contraction(
+                label, reads=(x, y0) + (() if epilogue is None
+                                        else (epilogue[0], epilogue[1])),
+                writes=(out,), launches=self.sell.P if kernel else 0)
         return out
 
     def __call__(self, n_steps: int, first: bool, carry, coeffs, emit):
@@ -1306,12 +1337,16 @@ class _SstepGroup:
             w1e = V.new_empty((P, R + G, nb))
             w1e[:, :R] = V.view(P, R, nb)
             w2e = None
+            self.n_exchanged = 0
         else:
             w1e, w2e = carry
             nb = w1e.shape[2]
             # [w1 | w2] in one collective, twice the width
             payload = torch.cat([w1e[:, :R], w2e[:, :R]], dim=2).view(
                 P * R, 2 * nb)
+            if g.trace is not None:
+                g.copy("payload", reads=(w1e[:, :R], w2e[:, :R]),
+                       writes=(payload,))
         kernel = self.use_kernel and payload.device.type == "cuda"
         W = payload.shape[1]
         pend, buf, ghosts = None, None, None
@@ -1320,9 +1355,11 @@ class _SstepGroup:
             ghosts = payload.new_empty((P * G, W))
             if self.overlap:
                 pend = g.start(lambda: self._exchange_into(payload, buf,
-                                                           ghosts))
+                                                           ghosts),
+                               f"sstep-exchange[{self.n_exchanged}]")
             else:
                 self._exchange_into(payload, buf, ghosts)
+            self.n_exchanged += 1
 
         def fill_ghosts():
             if ghosts is None:
@@ -1334,6 +1371,9 @@ class _SstepGroup:
             w1e[:, R:] = gh[:, :, :nb]
             if w2e is not None:
                 w2e[:, R:] = gh[:, :, nb:]
+            if g.trace is not None:
+                g.copy("ghost-fill", reads=(ghosts,), writes=(
+                    w1e[:, R:], None if w2e is None else w2e[:, R:]))
 
         epi = None if first else (w1e, w2e, alpha, beta)
         if self.overlap:
@@ -1341,28 +1381,34 @@ class _SstepGroup:
             y = w1e.new_empty((P, R + G, nb))
             if kernel:
                 self._contract(self.local, w1e[:, :R], None, None, True,
-                               out=y[:, :R])
+                               out=y[:, :R], label="step[0].local")
             else:
                 y[:, :R] = self._contract(self.local, w1e[:, :R], None, None,
-                                          False)
+                                          False, label="step[0].local")
             y[:, R:] = 0
             g.wait(pend)
             fill_ghosts()
-            y = self._contract(self.post, w1e, y, epi, kernel, out=y)
+            y = self._contract(self.post, w1e, y, epi, kernel, out=y,
+                               label="step[0].halo")
         else:
             fill_ghosts()
             y = self._contract(self.blocks[0], w1e, None, epi, kernel,
                                out=w1e.new_empty(w1e.shape) if kernel
-                               else None)
+                               else None, label="step[0]")
         del payload, buf, ghosts
-        t = a * y + b * w1e if first else y
+        if first:
+            t = a * y + b * w1e
+            if g.trace is not None:
+                g.copy("step[0].axpy", reads=(y, w1e), writes=(t,))
+        else:
+            t = y
         del y
         for i in range(n_steps):
             if i:
                 t = self._contract(self.blocks[i], w1e, None,
                                    (w1e, w2e, alpha, beta), kernel,
                                    out=w1e.new_empty(w1e.shape) if kernel
-                                   else None)
+                                   else None, label=f"step[{i}]")
             emit(t[:, :R])
             w2e, w1e = w1e, t
         return w1e, w2e

@@ -818,3 +818,64 @@ def test_degraded_ok_raises_a_kernel_launch_error(card, monkeypatch):
                   "--tol", "1e-8", "--max-iters", "30", "--layout", "pillar",
                   "--n-col", "2", "--spmv-kernel", "--degraded-ok"],
                  verbose=False)
+
+
+# ------------------------------------------------------ static checks --
+
+def test_census_krn_cell_on_the_card(card):
+    """A kernelized census cell (SpinChainXXZ(10,5), panel 4 × 2,
+    compressed-matching split-phase): every collective of one FD
+    macro-iteration attributed, none missing, and the kernels launched."""
+    from repro_torch.analysis import run_census_cell
+    from repro_torch.matrices import SpinChainXXZ
+
+    build.reset_launches()
+    rep = run_census_cell(SpinChainXXZ(10, 5), P_total=8, comm="compressed",
+                          schedule="matching", overlap=True, use_kernel=True,
+                          device=card)
+    torch.cuda.synchronize()
+    assert rep.ok, rep.describe()
+    assert rep.cell == "panel/compressed-matching+ov+krn/rows+none/P8"
+    assert rep.launches > 0
+    assert build.launches["ell_gather"] > 0
+    assert build.launches["ell_gather_cheb"] > 0
+
+
+@pytest.mark.parametrize("comm,schedule", [("a2a", "cyclic"),
+                                           ("compressed", "matching")])
+def test_split_phase_proof_on_a_real_side_stream(card, comm, schedule):
+    """The split-phase engine's record on the card, kernels on: (A) and
+    (B) hold and every side-stream entry ran on the real side stream;
+    the plain engine fails (B), a late start fails (A) and a dropped wait
+    is a race."""
+    from repro_torch.analysis import (CommTrace, check_split_phase,
+                                      dropped_wait, late_start)
+    from repro_torch.analysis.check_comm import ProofOperator
+    from repro_torch.core import make_spmv
+
+    op = ProofOperator(card)
+    for overlap in (True, False):
+        spmv = make_spmv(op.ells[overlap], use_kernel=True, overlap=overlap,
+                         comm=comm, schedule=schedule, pipeline=False)
+        trace = CommTrace().attach(spmv.group)
+        spmv(op.x)
+        torch.cuda.synchronize()
+        rep = check_split_phase(trace, real_side=True)
+        assert rep.ok == overlap, rep.describe()
+        if overlap:
+            sides = [e for e in trace.entries if e.stream == "side"]
+            assert sides and all(e.real_side for e in sides)
+            assert any(e.launches for e in trace.entries)
+            trace.clear()
+            with late_start(spmv.group):
+                spmv(op.x)
+            torch.cuda.synchronize()
+            late = check_split_phase(trace, real_side=True)
+            assert not late.ok
+            assert any("depends on contraction" in e for e in late.errors)
+            trace.clear()
+            with dropped_wait(spmv.group):
+                spmv(op.x)
+            dropped = check_split_phase(trace, real_side=True)
+            assert any("before its wait: a race" in e
+                       for e in dropped.errors), dropped.describe()
