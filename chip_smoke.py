@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py [--out RECORD.json] [--kernels-only]
+    python3 chip_smoke.py [--out RECORD.json] [--kernels-only | --lm-only]
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -211,7 +211,36 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * the negative controls, which must be caught: the plain engines fail
      (B), ``pipeline=False`` fails (c), an exchange started after the
      local blocks fails (A), an engine that drops its wait is a race, a
-     planted ``psum`` is unattributed and a skipped Gram is missing.
+     planted ``psum`` is unattributed and a skipped Gram is missing;
+10. lm — the LM serving path (``repro_torch.models``), which has no
+    kernel of its own (plain torch ops, TF32 off):
+
+   * card against CPU: each of the ten SMOKE configs through the port on
+     the card and on the CPU, fp32, the same weights and batch: prefill
+     of two 128-token prompts and 3 greedy decode steps, every logit and
+     decode-state leaf within 1e-4 of its largest magnitude (the
+     encoder, hubert, its prefill and encoder forward);
+   * the six archs one card holds (qwen3-0.6b, internvl2-1b,
+     granite-moe-3b-a800m, hymba-1.5b, rwkv6-1.6b, hubert-xlarge) at
+     full width and depth in bf16, random weights from a seed, through
+     ``make_prefill_step`` / ``make_decode_step``: B = 2, a 512-token
+     prompt (internvl2: patches and tokens, as ``make_batch`` builds
+     it; hymba: 2,040 tokens, so its 2,048-deep sliding-window rings
+     wrap during decode), 16 greedy decode steps; hubert the encoder
+     forward over 512 frames. Prefill ms and decode ms per token (CUDA
+     events, after a warm call) and the peak device memory, each beside
+     the card's name and power limit. Each decodable one then, in fp32
+     (TF32 off): the last decode step's logits against the last position
+     of one forward of the grown sequence, within 2e-3 (absolute and
+     relative; the MoE at a capacity that drops no token). RWKV6 runs its
+     per-token WKV there and is held in fp64, its fp32 difference
+     recorded: at full depth with random weights it amplifies fp32
+     rounding about twofold a layer; the chunked WKV's prefill against
+     the per-token one is recorded too;
+   * the four it cannot hold (nemotron-4-15b, qwen2.5-32b,
+     deepseek-67b, arctic-480b) at full width with depth cut to 2
+     layers, in bf16: the same run, its logits finite and of the right
+     shapes.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
@@ -219,7 +248,8 @@ them is the ``kernels`` record (both kernels and the epilogue entry,
 each with its launches on the solves and the service's three runs, by
 run, and its dtype cases).
 ``--kernels-only`` stops after phase 3 and prints no result line (for
-tuning the kernels; the full run is the check).
+tuning the kernels; the full run is the check); ``--lm-only`` runs phase
+10 alone, with no kernel build and no result line.
 """
 from __future__ import annotations
 
@@ -286,6 +316,19 @@ SVC_REQUESTS = (("a", RN_N_TARGET, 11), ("b", 8, 22))
 SVC_SHARDS, SVC_CKPT_INTERVAL, SVC_FAULT_AT = 8, 20, 30
 # the analysis phase's census filter degree
 ANALYSIS_DEGREE = 8
+# the LM phase: the six archs one card holds whole, at full width and
+# depth; the four it cannot hold, at full width with depth cut to
+# LM_CUT_LAYERS (arctic-480b: 2 x 13.6 B parameters, 55 GB in bf16)
+LM_FULL = ("qwen3-0.6b", "internvl2-1b", "granite-moe-3b-a800m",
+           "hymba-1.5b", "rwkv6-1.6b", "hubert-xlarge")
+LM_CUT = ("nemotron-4-15b", "qwen2.5-32b", "deepseek-67b", "arctic-480b")
+LM_CUT_LAYERS = 2
+LM_BATCH, LM_PROMPT, LM_DECODE = 2, 512, 16
+# hymba's prompt: its 2,048-deep sliding-window rings wrap during decode
+LM_HYMBA_PROMPT = 2040
+LM_CONSISTENCY_TOL = 2e-3  # tests/test_models.py's rtol = atol
+# the SMOKE configs, card against CPU
+LM_CPU_PROMPT, LM_CPU_STEPS, LM_CPU_TOL = 128, 3, 1e-4
 # forced slab widths timed at Hubbard n_b = 512 (fp64) and Exciton
 # n_b = 384 (complex128)
 SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
@@ -2166,6 +2209,289 @@ def phase_analysis() -> dict:
     return rec
 
 
+def _lm_inputs(cfg, batch: dict) -> dict:
+    """What prefill takes of a ``make_batch`` batch: the tokens, with a
+    VLM's patches, or an audio model's frames and mask."""
+    if cfg.family in ("vlm", "audio"):
+        return {k: v for k, v in batch.items() if k != "labels"}
+    return {"tokens": batch["tokens"]}
+
+
+def _lm_serve(cfg, model, inputs: dict, prompt: int, n_decode: int,
+              capacity_factor: float | None = None):
+    """Prefill, then ``n_decode`` greedy steps. With ``capacity_factor``
+    prefill runs ``backbone_with_state`` at that MoE capacity (the
+    consistency check), else through ``make_prefill_step``. Returns
+    (prefill logits, each step's logits, the tokens fed, prefill ms,
+    decode ms per token), the times from CUDA events."""
+    import torch
+
+    from repro_torch.models import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tfm
+
+    max_len = prompt + n_decode
+    if capacity_factor is None:
+        prefill = make_prefill_step(cfg, max_len)
+    else:
+        def prefill(m, b):
+            with torch.no_grad():
+                return tfm.backbone_with_state(m, cfg, b, max_len,
+                                               capacity_factor=capacity_factor)
+    step = make_decode_step(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, state = prefill(model, inputs)
+    ev[1].record()
+    tok = logits.argmax(-1)
+    toks, steps = [], []
+    for pos in range(prompt, prompt + n_decode):
+        toks.append(tok)
+        lg, state = step(model, state, tok, pos)
+        steps.append(lg)
+        tok = lg.argmax(-1)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del state
+    return (logits, steps, toks, ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / max(n_decode, 1))
+
+
+def _lm_full_forward(cfg, model, inputs: dict, toks: list,
+                     capacity_factor: float):
+    """Last-position logits of one forward of the prompt and the decoded
+    tokens."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    grown = dict(inputs, tokens=torch.cat(
+        [inputs["tokens"], torch.stack(toks, dim=1).to(
+            inputs["tokens"].dtype)], dim=1))
+    with torch.no_grad():
+        x, positions, _, _ = tfm.embed_batch(model, cfg, grown)
+        h, _ = tfm.backbone(model, cfg, x, positions,
+                            capacity_factor=capacity_factor)
+        return h[:, -1] @ tfm.lm_head_table(model, cfg).T
+
+
+def _rel_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def lm_case(arch: str, smi: str, seed: int, dev) -> dict:
+    """One arch at full width in bf16: prefill of ``LM_BATCH`` prompts,
+    ``LM_DECODE`` greedy decode steps (an encoder: its forward alone),
+    timed, with the peak device memory; for a decodable arch of full
+    depth, the consistency of decode with the full forward
+    (``_lm_consistency``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(arch)
+    cut = arch in LM_CUT
+    if cut:
+        cfg = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+    prompt = LM_HYMBA_PROMPT if arch == "hymba-1.5b" else LM_PROMPT
+    n_decode = 0 if cfg.encoder_only else LM_DECODE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = init_params(cfg, g, dev).requires_grad_(False)
+    inputs = _lm_inputs(cfg, make_batch(cfg, LM_BATCH, prompt, key=seed,
+                                        device=dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rec = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers,
+               depth_cut=(f"{get_config(arch).n_layers} -> {cfg.n_layers} "
+                          "layers" if cut else None),
+               d_model=cfg.d_model, batch=LM_BATCH, prompt=prompt,
+               decode_steps=n_decode, dtype=cfg.dtype,
+               n_params=sum(p.numel() for p in model.parameters()),
+               init_s=init_s)
+    if cfg.encoder_only:
+        def forward():
+            with torch.no_grad():
+                x, positions, _, _ = tfm.embed_batch(model, cfg, inputs)
+                h, _ = tfm.backbone(model, cfg, x, positions, causal=False)
+                return h @ tfm.lm_head_table(model, cfg).T
+        forward()  # warm
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = forward()
+        ev[1].record()
+        torch.cuda.synchronize()
+        rec.update(prefill_ms=ev[0].elapsed_time(ev[1]), decode_ms=None)
+        ok = (tuple(out.shape) == (LM_BATCH, prompt, cfg.vocab)
+              and bool(torch.isfinite(out).all()))
+    else:
+        _lm_serve(cfg, model, inputs, prompt, 1)  # warm
+        torch.cuda.reset_peak_memory_stats()
+        logits, steps, _, pre_ms, dec_ms = _lm_serve(cfg, model, inputs,
+                                                     prompt, n_decode)
+        rec.update(prefill_ms=pre_ms, decode_ms=dec_ms)
+        ok = all(tuple(t.shape) == (LM_BATCH, cfg.vocab)
+                 and bool(torch.isfinite(t).all())
+                 for t in [logits] + steps)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["finite_and_shaped"] = ok
+    log(f"[lm] {arch}: {cfg.family}, {cfg.n_layers} layers"
+        + (f" (depth cut {rec['depth_cut']})" if cut else "")
+        + f", d_model {cfg.d_model}, {rec['n_params'] / 1e9:.3f} B params, "
+        f"{cfg.dtype}, B = {LM_BATCH}, prompt {prompt}: prefill "
+        f"{rec['prefill_ms']:.3f} ms"
+        + (f", decode {rec['decode_ms']:.3f} ms/token over {n_decode}"
+           if n_decode else " (encoder forward)")
+        + f", peak {rec['peak_gb']:.2f} GB, init {init_s:.2f} s; {smi}")
+    if not ok:
+        raise SmokeFailure(f"lm {arch}: logits not finite or misshapen")
+    if not cut and n_decode:
+        rec["consistency"] = _lm_consistency(arch, cfg, model, inputs, prompt,
+                                             n_decode)
+    del model, inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _lm_consistency(arch: str, cfg, model, inputs: dict, prompt: int,
+                    n_decode: int) -> dict:
+    """The last of ``n_decode`` greedy decode steps against the last
+    position of one forward of the grown sequence, TF32 off, within
+    ``LM_CONSISTENCY_TOL`` (absolute and relative), in fp32. An MoE runs
+    at a capacity that drops no token, under which dispatch equals
+    decode's per-token experts. RWKV6 runs the per-token WKV throughout
+    (decode's recurrence; the chunked form, measured against it, is not
+    exact once a chunk's decay passes its e^30 clamp) and is held in fp64:
+    at full depth and random weights it amplifies fp32 rounding about
+    twofold a layer, so its fp32 difference is recorded beside it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import make_prefill_step
+
+    t0 = time.perf_counter()
+    cf = cfg.n_experts / cfg.top_k if cfg.n_experts else 1.25
+    ssm = cfg.family == "ssm"
+    ccfg = dataclasses.replace(cfg, ssm_chunk=0) if ssm else cfg
+    out = dict(capacity_factor=cf, wkv="per-token" if ssm else None,
+               gated="float64" if ssm else "float32")
+    for dt in (torch.float32, torch.float64) if ssm else (torch.float32,):
+        model.to(dt)
+        x = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in inputs.items()}
+        logits, steps, toks, _, _ = _lm_serve(ccfg, model, x, prompt,
+                                              n_decode, capacity_factor=cf)
+        full = _lm_full_forward(ccfg, model, x, toks, cf)
+        diff = (steps[-1] - full).abs()
+        name = str(dt).removeprefix("torch.")
+        out[name] = dict(max_abs=float(diff.max()),
+                         rel=_rel_err(steps[-1], full),
+                         ok=bool((diff <= LM_CONSISTENCY_TOL
+                                  * (1 + full.abs())).all()))
+        log(f"[lm] {arch}: {name} decode step {n_decode} against the full "
+            f"forward of {prompt + n_decode} positions: max |Δ| "
+            f"{out[name]['max_abs']:.3e} (rel {out[name]['rel']:.3e}; tol "
+            f"{LM_CONSISTENCY_TOL} abs + rel"
+            + ("" if name == out["gated"] else ", recorded, not gated") + ")"
+            + (f", MoE capacity factor {cf}" if cfg.n_experts else "")
+            + (", per-token WKV" if ssm else ""))
+        if ssm and dt == torch.float32:
+            chunked, _ = make_prefill_step(cfg, prompt + n_decode)(model, x)
+            out["chunked_vs_scan_rel"] = _rel_err(chunked, logits)
+            log(f"[lm] {arch}: float32 prefill logits, chunked WKV (chunk "
+                f"{cfg.ssm_chunk}) against the per-token WKV: rel "
+                f"{out['chunked_vs_scan_rel']:.3e} (recorded, not gated)")
+    out["ok"] = out[out["gated"]]["ok"]
+    out["seconds"] = time.perf_counter() - t0
+    if not out["ok"]:
+        raise SmokeFailure(f"lm {arch}: decode differs from the full forward "
+                           f"by {out[out['gated']]['max_abs']}")
+    return out
+
+
+def lm_card_against_cpu(arch: str, dev) -> dict:
+    """A SMOKE config through the port on the card and on the CPU, fp32,
+    the same weights and batch: prefill and ``LM_CPU_STEPS`` decode steps
+    (the CPU's greedy tokens fed to both), logits and decode-state leaves
+    to ``LM_CPU_TOL`` of their largest magnitude; an encoder's forward."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (init_params, make_batch,
+                                    make_decode_step, make_prefill_step)
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0),
+                      "cpu").requires_grad_(False)
+    card = copy.deepcopy(cpu).to(dev)
+    inputs = _lm_inputs(cfg, make_batch(cfg, 2, LM_CPU_PROMPT, device="cpu"))
+    on_card = {k: v.to(dev) for k, v in inputs.items()}
+    errs = []
+    if cfg.encoder_only:
+        with torch.no_grad():
+            outs = []
+            for m, b in ((cpu, inputs), (card, on_card)):
+                x, positions, _, _ = tfm.embed_batch(m, cfg, b)
+                outs.append(tfm.backbone(m, cfg, x, positions,
+                                         causal=False)[0])
+        errs.append(_rel_err(outs[1].cpu(), outs[0]))
+    max_len = LM_CPU_PROMPT + LM_CPU_STEPS
+    pre = make_prefill_step(cfg, max_len)
+    lc, sc = pre(cpu, inputs)
+    lg, sg = pre(card, on_card)
+    errs.append(_rel_err(lg.cpu(), lc))
+    if not cfg.encoder_only:
+        step = make_decode_step(cfg)
+        tok = lc.argmax(-1)
+        for pos in range(LM_CPU_PROMPT, max_len):
+            lc, sc = step(cpu, sc, tok, pos)
+            lg, sg = step(card, sg, tok.to(dev), pos)
+            errs.append(_rel_err(lg.cpu(), lc))
+            tok = lc.argmax(-1)
+    for seg_c, seg_g in zip(sc, sg):
+        errs += [_rel_err(seg_g[k].cpu(), seg_c[k]) for k in seg_c]
+    err = max(errs)
+    return dict(arch=arch, family=cfg.family, max_rel_err=err,
+                ok=err <= LM_CPU_TOL)
+
+
+def phase_lm(smi: str) -> dict:
+    """The LM serving path on the card (phase 10): the ten SMOKE configs
+    against the CPU, then the ten archs at full width in bf16, the four
+    too large for one card cut to ``LM_CUT_LAYERS`` layers."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    against_cpu = []
+    for arch in LM_FULL + LM_CUT:
+        r = lm_card_against_cpu(arch, dev)
+        against_cpu.append(r)
+        log(f"[lm] {arch} SMOKE, card against CPU, fp32, prefill + "
+            f"{LM_CPU_STEPS} decode steps: max rel err {r['max_rel_err']:.3e}"
+            f" (tol {LM_CPU_TOL})")
+    bad = [r["arch"] for r in against_cpu if not r["ok"]]
+    if bad:
+        raise SmokeFailure(f"lm: card differs from the CPU on {bad}")
+    cpu_s = time.perf_counter() - t0
+    cases = [lm_case(arch, smi, seed, dev) for seed, arch in
+             enumerate(LM_FULL + LM_CUT)]
+    torch.cuda.empty_cache()
+    return dict(against_cpu=against_cpu, against_cpu_seconds=cpu_s,
+                cases=cases)
+
 def write_record(path: str, record: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2191,6 +2517,16 @@ def run(args) -> int:
         f"cuda {torch.version.cuda}; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if args.lm_only:
+        t0 = time.perf_counter()
+        lm = phase_lm(smi)
+        lm["seconds"] = time.perf_counter() - t0
+        log(f"[lm] phase {lm['seconds']:.1f} s")
+        if args.out:
+            write_record(args.out, dict(device=dict(name=name, count=count,
+                                                    nvidia_smi=smi), lm=lm))
+        return 0
 
     build.load()
     log(f"[build] {build.build_seconds:.2f} s\n{build.build_log}")
@@ -2236,6 +2572,10 @@ def run(args) -> int:
     analysis = phase_analysis()
     analysis["seconds"] = time.perf_counter() - t0
     log(f"[analysis] phase {analysis['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    lm = phase_lm(smi)
+    lm["seconds"] = time.perf_counter() - t0
+    log(f"[lm] phase {lm['seconds']:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
@@ -2263,7 +2603,8 @@ def run(args) -> int:
                                     checks=records, engines=engines,
                                     layouts=layouts, plan=plan,
                                     solves=solves, service=service,
-                                    analysis=analysis, kernels=line))
+                                    analysis=analysis, lm=lm,
+                                    kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
         "check to the result")
     log(json.dumps({"kernels": line}))
@@ -2279,6 +2620,9 @@ def main(argv=None) -> int:
                     help="write the full record (every check, the solves) here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no result line)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run the device check and the LM phase alone "
+                         "(no kernel build, no result line)")
     args = ap.parse_args(argv)
     try:
         return run(args)

@@ -31,13 +31,19 @@ same state:
   and measured ``CollectiveOp`` multisets (objects, or dicts of their
   fields, as a subprocess hands them over), as the port's
   ``analysis.census`` types, so either side's ``attribute`` can take
-  them.
+  them;
+* the LM side: a ``ModelConfig`` from the reference's fields, the
+  reference's parameter tree (numpy leaves, each segment's layers stacked
+  along a leading axis) as the port's ``LMModel``, and its per-segment
+  decode states as the port's.
 
 Each function that makes tensors puts them on ``device``: the card unless
 ``"cpu"`` is given. The planner's converters take the reference's
 objects and read their fields.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -53,6 +59,7 @@ from .core.spmv import DistEll, NeighborPlan, SstepEll, SstepNeighbor
 from .device import resolve_device
 from .kernels.ops import DiaPlan
 from .kernels.plan import span_of
+from .models import LMModel, ModelConfig
 from .service import plan_cache
 
 
@@ -398,3 +405,74 @@ def collective_ops_from_fields(ops) -> list:
                          name=str(_field(o, "name")),
                          computation=str(_field(o, "computation")))
             for o in ops]
+
+
+def model_config_from_fields(ref_cfg) -> ModelConfig:
+    """The port's ``ModelConfig`` with every field of the reference's
+    (an object or a dict of its fields)."""
+    return ModelConfig(**{f.name: _field(ref_cfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def _lm_tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of its own dtype; bfloat16 (ml_dtypes)
+    goes through fp32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.as_tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _leaf_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for k, v in enumerate(tree):
+            yield from _leaf_paths(v, prefix + (str(k),))
+    else:
+        yield prefix
+
+
+def lm_params_from_arrays(cfg, tree, device=None) -> LMModel:
+    """The reference's parameter tree (``jax.tree.map(np.asarray,
+    params)``) as the port's model: leaf ``segments[s][...][i]`` of the
+    reference (layer ``i`` of segment ``s``, stacked) becomes parameter
+    ``segments.s.i....``, every other leaf the parameter of its path. Each
+    leaf must be used, with the port parameter's shape and dtype."""
+    cfg = cfg if isinstance(cfg, ModelConfig) else \
+        model_config_from_fields(cfg)
+    dev = resolve_device(device)
+    model = LMModel(cfg, device=dev)
+    used = set()
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            path = name.split(".")
+            layer = None
+            if path[0] == "segments":
+                path, layer = path[:2] + path[3:], int(path[2])
+            node = tree
+            for key in path:
+                node = node[int(key)] if isinstance(node, (list, tuple)) \
+                    else node[key]
+            a = np.asarray(node) if layer is None else np.asarray(node)[layer]
+            t = _lm_tensor(a, dev)
+            if tuple(t.shape) != tuple(prm.shape) or t.dtype != prm.dtype:
+                raise ValueError(f"{name}: reference leaf {a.dtype}"
+                                 f"{list(a.shape)}, port parameter "
+                                 f"{prm.dtype}{list(prm.shape)}")
+            prm.copy_(t)
+            used.add(tuple(path))
+    unused = set(_leaf_paths(tree)) - used
+    if unused:
+        raise ValueError(f"reference leaves with no port parameter: "
+                         f"{sorted(unused)}")
+    return model
+
+
+def decode_state_from_arrays(states, device=None) -> list:
+    """The reference's decode state (one dict of stacked per-layer arrays
+    per segment) as the port's, leaf for leaf in each leaf's dtype."""
+    dev = resolve_device(device)
+    return [{k: _lm_tensor(v, dev) for k, v in seg.items()} for seg in states]

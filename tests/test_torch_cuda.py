@@ -879,3 +879,84 @@ def test_split_phase_proof_on_a_real_side_stream(card, comm, schedule):
             dropped = check_split_phase(trace, real_side=True)
             assert any("before its wait: a race" in e
                        for e in dropped.errors), dropped.describe()
+
+
+# ------------------------------------------------------------- LM serving --
+
+@pytest.fixture
+def no_tf32():
+    """fp32 products in fp32 (TF32 off) for the test, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_lm_qwen3_decode_equals_the_full_forward(card, no_tf32):
+    """qwen3-0.6b at full width and depth in fp32: the last of 8 greedy
+    decode steps equals the last position of one forward of the grown
+    sequence (``tests/test_models.py``'s tolerance, 2e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (init_params, make_batch,
+                                    make_decode_step, make_prefill_step)
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("qwen3-0.6b")
+    model = init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                        card, dtype=torch.float32).requires_grad_(False)
+    toks = make_batch(cfg, 1, 64, device=card)["tokens"]
+    logits, state = make_prefill_step(cfg, 72)(model, {"tokens": toks})
+    step = make_decode_step(cfg)
+    for pos in range(64, 72):
+        nxt = logits.argmax(-1)
+        logits, state = step(model, state, nxt, pos)
+        toks = torch.cat([toks, nxt[:, None].to(toks.dtype)], dim=1)
+    with torch.no_grad():
+        x, positions, _, _ = tfm.embed_batch(model, cfg, {"tokens": toks})
+        h, _ = tfm.backbone(model, cfg, x, positions)
+        full = h[:, -1] @ tfm.lm_head_table(model, cfg).T
+    assert toks.shape == (1, 72)
+    torch.testing.assert_close(logits, full, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "rwkv6-1.6b", "internvl2-1b",
+                                  "hubert-xlarge"])
+def test_lm_smoke_config_card_equals_cpu(card, no_tf32, arch):
+    """One SMOKE config of each family through the port on the card and
+    on the CPU, fp32, the same weights and batch: the prefill logits, the
+    decode state and 3 decode steps within 1e-4 of their largest
+    magnitude (hubert: the prefill alone)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (init_params, make_batch,
+                                    make_decode_step, make_prefill_step)
+
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0),
+                      "cpu").requires_grad_(False)
+    gpu = copy.deepcopy(cpu).to(card)
+    batch = make_batch(cfg, 2, 128, device="cpu")
+    if cfg.family not in ("vlm", "audio"):
+        batch = {"tokens": batch["tokens"]}
+
+    def close(got, want):
+        want = want.double()
+        err = (got.cpu().double() - want).abs().max()
+        assert err <= 1e-4 * want.abs().max().clamp_min(1e-30), err
+
+    pre = make_prefill_step(cfg, 131)
+    lc, sc = pre(cpu, batch)
+    lg, sg = pre(gpu, {k: v.to(card) for k, v in batch.items()})
+    close(lg, lc)
+    if not cfg.encoder_only:
+        step = make_decode_step(cfg)
+        for pos in range(128, 131):
+            tok = lc.argmax(-1)
+            lc, sc = step(cpu, sc, tok, pos)
+            lg, sg = step(gpu, sg, tok.to(card), pos)
+            close(lg, lc)
+    for seg_c, seg_g in zip(sc, sg, strict=True):
+        for k in seg_c:
+            close(seg_g[k], seg_c[k])

@@ -210,8 +210,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
 # ----------------------------------------------------------- isolation --
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Every module of ``repro_torch`` and ``chip_smoke.py``, imported in a
-    fresh interpreter, bring in neither ``jax`` nor ``repro``."""
+    """Every module of ``repro_torch`` (the LM side's ``models`` and its
+    configs included) and ``chip_smoke.py``, imported in a fresh
+    interpreter, bring in neither ``jax`` nor ``repro``."""
     script = r"""
 import importlib, pkgutil, runpy, sys
 import repro_torch
@@ -225,6 +226,12 @@ bad = sorted(m for m in sys.modules
                                                                  "repro.")))
 print(len(names), bad)
 assert not bad, bad
+lm = {"repro_torch.models." + m for m in ("config", "layers", "attention",
+                                          "moe", "ssm", "transformer",
+                                          "decode", "steps")}
+lm |= {"repro_torch.configs." + m for m in ("qwen3_0p6b", "arctic_480b",
+                                            "rwkv6_1p6b", "hymba_1p5b")}
+assert lm <= set(names), sorted(lm - set(names))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", script,
@@ -232,4 +239,4 @@ assert not bad, bad
                        capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split()[0])
-    assert n >= 25  # every module was reached
+    assert n >= 70  # every module was reached

@@ -159,7 +159,8 @@ def test_operator_build_equals_reference(fam, params, dtype):
 def test_eigen_configs_equal_reference(name):
     """The port's eigen configs (``get_config`` / ``get_smoke_config``)
     equal the reference's: the matrix, every FDConfig field and the
-    layouts; the LM configs are not ported."""
+    layouts. The LM configs share the registry (held field for field in
+    ``tests/test_torch_models.py``); an unknown name raises."""
     assert tconfigs.EIGEN_CONFIGS == jconfigs.EIGEN_CONFIGS
     for get_t, get_j in ((tconfigs.get_config, jconfigs.get_config),
                          (tconfigs.get_smoke_config, jconfigs.get_smoke_config)):
@@ -173,4 +174,6 @@ def test_eigen_configs_equal_reference(name):
             j["matrix"]["family"], **{k: v for k, v in j["matrix"].items()
                                       if k != "family"}).describe()
     with pytest.raises(KeyError):
-        tconfigs.get_config("qwen3-0.6b")
+        tconfigs.get_config("no-such-config")
+    assert dataclasses.asdict(tconfigs.get_config("qwen3-0.6b")) == \
+        dataclasses.asdict(jconfigs.get_config("qwen3-0.6b"))
