@@ -240,7 +240,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * the four it cannot hold (nemotron-4-15b, qwen2.5-32b,
      deepseek-67b, arctic-480b) at full width with depth cut to 2
      layers, in bf16: the same run, its logits finite and of the right
-     shapes.
+     shapes;
+11. train — the LM training path (``make_train_step``: autograd through
+    the loss, the port's AdamW; ``launch/train.py::train``), no kernel of
+    its own:
+
+   * card against CPU: each of the ten SMOKE configs, fp32, the same
+     weights and batch, two train steps on the CPU, each also taken on
+     the card from the CPU's state before it: loss and grad norm within
+     1e-4 (relative), every updated parameter within 1e-4 of its leaf's
+     largest magnitude, except elements whose gradient lies below 1e-3 of
+     the leaf's largest (Adam's ``g / (|g| + eps)`` flips with rounding
+     there), held to 2·lr (two free-running steps amplify fp32 rounding
+     on the zero-init leaves past that, in the reference too);
+   * qwen3-0.6b at full width and depth in bf16, fp32 moments, B = 2 ×
+     512 tokens of ``TokenPipeline``, 10 steps through ``train(smoke=
+     False, opt_overrides={"lr": 3e-3})``: every loss finite, the mean of
+     the last three below the first; then step ms (CUDA events, the
+     model warm), tokens/s and the peak device memory;
+   * granite-moe-3b-a800m (32 layers, 40 experts, top-8) at full width
+     and depth in bf16 with int8 moments (the quantized path arctic-480b's
+     config uses; arctic cannot train on one card) through
+     ``make_train_step``, 4 steps: losses finite, each moment's (codes,
+     scales) of the reference's per-leaf shape; step ms and peak memory;
+   * the exact resume: qwen3-0.6b SMOKE through ``train`` on the card,
+     a 10-step run against a 7-step run resumed to 10, the parameters
+     bit-equal, under ``torch.use_deterministic_algorithms``.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
@@ -248,13 +273,14 @@ them is the ``kernels`` record (both kernels and the epilogue entry,
 each with its launches on the solves and the service's three runs, by
 run, and its dtype cases).
 ``--kernels-only`` stops after phase 3 and prints no result line (for
-tuning the kernels; the full run is the check); ``--lm-only`` runs phase
-10 alone, with no kernel build and no result line.
+tuning the kernels; the full run is the check); ``--lm-only`` runs phases
+10 and 11 alone, with no kernel build and no result line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -329,6 +355,15 @@ LM_HYMBA_PROMPT = 2040
 LM_CONSISTENCY_TOL = 2e-3  # tests/test_models.py's rtol = atol
 # the SMOKE configs, card against CPU
 LM_CPU_PROMPT, LM_CPU_STEPS, LM_CPU_TOL = 128, 3, 1e-4
+# the train phase: the SMOKE configs card against CPU (steps, tolerance,
+# the small-grad share of Adam's first step); qwen3-0.6b at full size
+# through train() (its lr that of the reference's loss-decrease test),
+# then timed steps; granite-moe with int8 moments; the exact resume
+TRAIN_CPU_STEPS, TRAIN_CPU_TOL, TRAIN_SMALL_GRAD = 2, 1e-4, 1e-3
+TRAIN_SEQ_BATCH = (512, 2)
+TRAIN_QWEN_STEPS, TRAIN_QWEN_LR, TRAIN_TIMED_STEPS = 10, 3e-3, 3
+TRAIN_GRANITE_STEPS = 4
+TRAIN_RESUME = (7, 10)  # stop after, resume to
 # forced slab widths timed at Hubbard n_b = 512 (fp64) and Exciton
 # n_b = 384 (complex128)
 SLAB_SWEEP = {"cheb_dia": (4, 8, 16, 32, 64, 128, N_SEARCH),
@@ -2492,6 +2527,311 @@ def phase_lm(smi: str) -> dict:
     return dict(against_cpu=against_cpu, against_cpu_seconds=cpu_s,
                 cases=cases)
 
+def _leaf_values(tree) -> list:
+    """The leaves of a parameter or gradient tree, each as one tensor."""
+    from repro_torch.optim import adamw
+
+    return [adamw.value(leaf) for _, leaf in adamw.tree_paths(tree)]
+
+
+def train_card_against_cpu(arch: str, dev) -> dict:
+    """A SMOKE config through ``make_train_step`` on the CPU for
+    ``TRAIN_CPU_STEPS`` steps, fp32, each step also taken on the card from
+    the CPU's parameters and moments before it, on the same batch: loss
+    and grad norm to ``TRAIN_CPU_TOL`` (relative), every parameter to
+    ``TRAIN_CPU_TOL`` of its leaf's max, except the elements whose
+    gradient in that step lay below ``TRAIN_SMALL_GRAD`` of the leaf's max
+    (Adam's ``g / (|g| + eps)`` flips with rounding there), held to 2·lr.
+    Each step starts from the CPU's state because two free-running Adam
+    steps amplify fp32 rounding on the zero-init leaves beyond the
+    tolerance, in the reference as well (``tests/test_torch_train.py::
+    test_two_adam_steps_amplify_a_one_ulp_change``)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.models.steps import grad_tree, make_train_step, param_tree
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    ocfg = adamw.AdamWConfig(moment_dtype="float32", warmup_steps=2,
+                             total_steps=10)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(cfg, 2, LM_CPU_PROMPT, device="cpu")
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    state = adamw.init_state(ocfg, param_tree(cpu))
+    step = make_train_step(cfg, ocfg)
+    metric_err, param_err, n_small = 0.0, 0.0, 0
+    for _ in range(TRAIN_CPU_STEPS):
+        card = copy.deepcopy(cpu).to(dev)
+        card_state = adamw.tree_map(lambda t: t.to(dev, copy=True), state)
+        cpu, state, mc = step(cpu, state, batch)
+        card, card_state, mg = step(card, card_state, on_card)
+        for k in ("loss", "grad_norm"):
+            metric_err = max(metric_err, abs(float(mg[k]) - float(mc[k]))
+                             / max(abs(float(mc[k])), 1e-30))
+        lr = float(mc["lr"])
+        for p, q, g in zip(_leaf_values(param_tree(cpu)),
+                           _leaf_values(param_tree(card)),
+                           _leaf_values(grad_tree(param_tree(cpu)))):
+            err = (q.detach().cpu() - p.detach()).abs()
+            scale = float(p.detach().abs().max().clamp_min(1e-30))
+            small = g.abs() < TRAIN_SMALL_GRAD * g.abs().max()
+            if (~small).any():
+                param_err = max(param_err, float(err[~small].max()) / scale)
+            n_small += int((small & (err > TRAIN_CPU_TOL * scale)).sum())
+            if bool((err[small] > 2 * lr).any()):
+                param_err = float("inf")
+    return dict(arch=arch, family=cfg.family, metric_rel_err=metric_err,
+                param_rel_err=param_err, small_grad_beyond_tol=n_small,
+                ok=max(metric_err, param_err) <= TRAIN_CPU_TOL)
+
+
+def _timed_train_steps(step, model, state, pipe, start: int, n: int):
+    """``n`` steps on ``pipe``'s batches ``start``, ``start + 1``, ...,
+    each timed with CUDA events (its batch made before); returns (model,
+    state, each step's ms, losses)."""
+    import torch
+
+    seq, batch = TRAIN_SEQ_BATCH
+    ms, losses = [], []
+    for i in range(start, start + n):
+        b = pipe.batch(i, batch, seq)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        model, state, m = step(model, state, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(m["loss"]))
+    return model, state, ms, losses
+
+
+def train_qwen_full(smi: str, dev) -> dict:
+    """qwen3-0.6b at full width and depth in bf16 through ``train``, then
+    ``TRAIN_TIMED_STEPS`` timed steps of the same model and optimizer."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import train
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    arch = "qwen3-0.6b"
+    seq, batch = TRAIN_SEQ_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state, losses = train(arch, steps=TRAIN_QWEN_STEPS, batch=batch,
+                                 seq=seq, smoke=False, log_every=1,
+                                 opt_overrides={"lr": TRAIN_QWEN_LR},
+                                 device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cfg = get_config(arch)
+    ocfg = adamw.AdamWConfig(moment_dtype=cfg.optimizer_dtype,
+                             warmup_steps=10, total_steps=TRAIN_QWEN_STEPS,
+                             lr=TRAIN_QWEN_LR)
+    model, state, ms, more = _timed_train_steps(
+        make_train_step(cfg, ocfg), model, state,
+        TokenPipeline(cfg, device=dev), TRAIN_QWEN_STEPS, TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in model.parameters())
+    first, last3 = losses[0], sum(losses[-3:]) / 3
+    finite = all(map(math.isfinite, losses + more))
+    rec = dict(arch=arch, dtype=cfg.dtype, moments=cfg.optimizer_dtype,
+               n_params=n_params, batch=batch, seq=seq, losses=losses,
+               timed_losses=more, train_s=train_s, step_ms=ms,
+               tokens_per_s=batch * seq / (min(ms) / 1e3), peak_gb=peak,
+               ok=finite and last3 < first)
+    log(f"[train] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params, {cfg.dtype}, "
+        f"{cfg.optimizer_dtype} moments, B = {batch} x {seq} tokens: "
+        f"{TRAIN_QWEN_STEPS} steps through train() in {train_s:.2f} s, "
+        f"loss {first:.4f} -> {losses[-1]:.4f} (last three {last3:.4f}); "
+        f"step {min(ms):.3f} ms (min of {', '.join(f'{x:.3f}' for x in ms)}"
+        f"), {rec['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB; {smi}")
+    del model, state
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SmokeFailure(f"train {arch}: losses not finite or not falling "
+                           f"({losses})")
+    return rec
+
+
+def _q8_shape(shape) -> tuple:
+    """The reference's int8 moment of a leaf: (codes, scales) shapes."""
+    n_blocks = -(-math.prod(shape) // 256)
+    return (n_blocks, 256), (n_blocks, 1)
+
+
+def train_granite_int8(smi: str, dev) -> dict:
+    """granite-moe-3b-a800m at full width and depth in bf16 with int8
+    moments through ``make_train_step``: ``TRAIN_GRANITE_STEPS`` steps,
+    the first a warm one, the others timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.steps import (init_train_state, make_train_step,
+                                          param_tree)
+    from repro_torch.optim import adamw
+
+    arch = "granite-moe-3b-a800m"
+    seq, batch = TRAIN_SEQ_BATCH
+    cfg = get_config(arch)
+    ocfg = adamw.AdamWConfig(moment_dtype="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, state = init_train_state(
+        cfg, ocfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    paths = adamw.tree_paths(param_tree(model))
+    n = sum(math.prod(leaf.shape) for _, leaf in paths)
+    moment_bytes = 2 * sum(
+        math.prod(c) + 4 * math.prod(s)
+        for c, s in (_q8_shape(leaf.shape) for _, leaf in paths))
+    step = make_train_step(cfg, ocfg)
+    pipe = TokenPipeline(cfg, device=dev)
+    model, state, warm_ms, warm = _timed_train_steps(step, model, state,
+                                                     pipe, 0, 1)
+    model, state, ms, losses = _timed_train_steps(
+        step, model, state, pipe, 1, TRAIN_GRANITE_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad_shapes = []
+    for path, leaf in paths:
+        want = _q8_shape(leaf.shape)
+        for mom in ("m", "v"):
+            codes, scales = adamw.tree_at(state[mom], path)
+            got = ((tuple(codes.shape), codes.dtype),
+                   (tuple(scales.shape), scales.dtype))
+            if got != ((want[0], torch.int8), (want[1], torch.float32)):
+                bad_shapes.append((mom, path, got))
+    losses = warm + losses
+    rec = dict(arch=arch, dtype=cfg.dtype, moments="int8", n_params=n,
+               reckoned_gb=dict(params=2 * n / 1e9, grads=2 * n / 1e9,
+                                moments=moment_bytes / 1e9),
+               batch=batch, seq=seq, init_s=init_s, losses=losses,
+               warm_ms=warm_ms[0], step_ms=ms,
+               tokens_per_s=batch * seq / (min(ms) / 1e3), peak_gb=peak,
+               leaves=len(paths), bad_shapes=[str(b) for b in bad_shapes],
+               ok=all(map(math.isfinite, losses)) and not bad_shapes)
+    log(f"[train] {arch}: {cfg.n_layers} layers, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}, {n / 1e9:.3f} B params, {cfg.dtype}, int8 "
+        f"moments ({len(paths)} leaves, codes and scales of the "
+        f"reference's shapes: {not bad_shapes}); reckoned params "
+        f"{2 * n / 1e9:.2f} + grads {2 * n / 1e9:.2f} + moments "
+        f"{moment_bytes / 1e9:.2f} GB; B = {batch} x {seq} tokens: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; warm step "
+        f"{warm_ms[0]:.3f} ms, step {min(ms):.3f} ms (min of "
+        f"{', '.join(f'{x:.3f}' for x in ms)}), {rec['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak:.2f} GB, init {init_s:.2f} s; {smi}")
+    del model, state
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise SmokeFailure(f"train {arch}: losses {losses}, moment shapes "
+                           f"{bad_shapes[:3]}")
+    return rec
+
+
+def train_exact_resume(dev, out_dir: str) -> dict:
+    """qwen3-0.6b SMOKE through ``train`` on the card under deterministic
+    algorithms: ``TRAIN_RESUME[1]`` steps straight against
+    ``TRAIN_RESUME[0]`` steps resumed to ``TRAIN_RESUME[1]`` from the
+    checkpoint; the parameters must be bit-equal."""
+    import shutil
+
+    import torch
+
+    from repro_torch.launch.train import train
+    from repro_torch.models.steps import param_tree
+
+    stop, end = TRAIN_RESUME
+    ck = os.path.join(out_dir, "train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        kw = dict(batch=2, seq=32, log_every=100, device=dev)
+        full, _, _ = train("qwen3-0.6b", steps=end, **kw)
+        train("qwen3-0.6b", steps=stop, ckpt_dir=ck, **kw)
+        res, state, losses = train("qwen3-0.6b", steps=end, ckpt_dir=ck, **kw)
+    except RuntimeError as e:  # an op with no deterministic form says so
+        raise SmokeFailure(f"train: exact resume under deterministic "
+                           f"algorithms: {e}") from e
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        shutil.rmtree(ck, ignore_errors=True)
+    a = _leaf_values(param_tree(full))
+    b = _leaf_values(param_tree(res))
+    n_diff = sum(int((x != y).sum()) for x, y in zip(a, b))
+    rec = dict(steps=end, stopped_after=stop, resumed_steps=len(losses),
+               elements_differing=n_diff, seconds=time.perf_counter() - t0,
+               ok=n_diff == 0 and len(losses) == end - stop
+               and int(state["step"]) == end)
+    log(f"[train] exact resume (qwen3-0.6b SMOKE, deterministic algorithms):"
+        f" {end} steps against {stop} + {len(losses)} resumed, "
+        f"{n_diff} parameter elements differ, {rec['seconds']:.2f} s")
+    if not rec["ok"]:
+        raise SmokeFailure(f"train: the resumed run differs in {n_diff} "
+                           "parameter elements")
+    return rec
+
+
+def phase_train(smi: str, out_dir: str) -> dict:
+    """The LM training path on the card (phase 11): the ten SMOKE configs
+    against the CPU, qwen3-0.6b and granite-moe-3b-a800m at full size, and
+    the exact resume."""
+    import torch
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    against_cpu = []
+    for arch in LM_FULL + LM_CUT:
+        r = train_card_against_cpu(arch, dev)
+        against_cpu.append(r)
+        log(f"[train] {arch} SMOKE, card against CPU, fp32, "
+            f"{TRAIN_CPU_STEPS} train steps, each from the CPU's state: "
+            f"loss/grad-norm rel err {r['metric_rel_err']:.3e}, parameters "
+            f"{r['param_rel_err']:.3e} (tol {TRAIN_CPU_TOL}; "
+            f"{r['small_grad_beyond_tol']} small-grad elements beyond it, "
+            "within 2·lr)")
+    bad = [r["arch"] for r in against_cpu if not r["ok"]]
+    if bad:
+        raise SmokeFailure(f"train: card differs from the CPU on {bad}")
+    cpu_s = time.perf_counter() - t0
+    rec = dict(against_cpu=against_cpu, against_cpu_seconds=cpu_s,
+               qwen3=train_qwen_full(smi, dev),
+               granite_int8=train_granite_int8(smi, dev),
+               resume=train_exact_resume(dev, out_dir))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_lm_phases(smi: str, out_dir: str) -> tuple:
+    """Phases 10 (lm) and 11 (train), each timed."""
+    t0 = time.perf_counter()
+    lm = phase_lm(smi)
+    lm["seconds"] = time.perf_counter() - t0
+    log(f"[lm] phase {lm['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    train = phase_train(smi, out_dir)
+    train["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase {train['seconds']:.1f} s")
+    return lm, train
+
+
 def write_record(path: str, record: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2518,14 +2858,15 @@ def run(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
+               else os.path.join(ROOT, "chiprun_out"))
+    os.makedirs(out_dir, exist_ok=True)
     if args.lm_only:
-        t0 = time.perf_counter()
-        lm = phase_lm(smi)
-        lm["seconds"] = time.perf_counter() - t0
-        log(f"[lm] phase {lm['seconds']:.1f} s")
+        lm, train = run_lm_phases(smi, out_dir)
         if args.out:
             write_record(args.out, dict(device=dict(name=name, count=count,
-                                                    nvidia_smi=smi), lm=lm))
+                                                    nvidia_smi=smi), lm=lm,
+                                        train=train))
         return 0
 
     build.load()
@@ -2553,9 +2894,6 @@ def run(args) -> int:
     layouts["determinism"] = determinism_case()
     log(f"[layouts] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    out_dir = (os.path.dirname(os.path.abspath(args.out)) if args.out
-               else os.path.join(ROOT, "chiprun_out"))
-    os.makedirs(out_dir, exist_ok=True)
     fit_path = os.path.join(out_dir, "machine_fit_h100.json")
     plan = phase_plan(layouts, fit_path)
     log(f"[plan] phase {time.perf_counter() - t0:.1f} s")
@@ -2572,10 +2910,7 @@ def run(args) -> int:
     analysis = phase_analysis()
     analysis["seconds"] = time.perf_counter() - t0
     log(f"[analysis] phase {analysis['seconds']:.1f} s")
-    t0 = time.perf_counter()
-    lm = phase_lm(smi)
-    lm["seconds"] = time.perf_counter() - t0
-    log(f"[lm] phase {lm['seconds']:.1f} s")
+    lm, train = run_lm_phases(smi, out_dir)
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
@@ -2603,7 +2938,7 @@ def run(args) -> int:
                                     checks=records, engines=engines,
                                     layouts=layouts, plan=plan,
                                     solves=solves, service=service,
-                                    analysis=analysis, lm=lm,
+                                    analysis=analysis, lm=lm, train=train,
                                     kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
         "check to the result")
@@ -2621,8 +2956,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phase (no result line)")
     ap.add_argument("--lm-only", action="store_true",
-                    help="run the device check and the LM phase alone "
-                         "(no kernel build, no result line)")
+                    help="run the device check and the LM phases (serving, "
+                         "then training) alone (no kernel build, no result "
+                         "line)")
     args = ap.parse_args(argv)
     try:
         return run(args)

@@ -34,8 +34,8 @@ same state:
   them;
 * the LM side: a ``ModelConfig`` from the reference's fields, the
   reference's parameter tree (numpy leaves, each segment's layers stacked
-  along a leading axis) as the port's ``LMModel``, and its per-segment
-  decode states as the port's.
+  along a leading axis) as the port's ``LMModel`` and back, its
+  per-segment decode states and its AdamW state as the port's.
 
 Each function that makes tensors puts them on ``device``: the card unless
 ``"cpu"`` is given. The planner's converters take the reference's
@@ -60,6 +60,8 @@ from .device import resolve_device
 from .kernels.ops import DiaPlan
 from .kernels.plan import span_of
 from .models import LMModel, ModelConfig
+from .models.steps import param_tree
+from .optim import adamw
 from .service import plan_cache
 
 
@@ -476,3 +478,56 @@ def decode_state_from_arrays(states, device=None) -> list:
     per segment) as the port's, leaf for leaf in each leaf's dtype."""
     dev = resolve_device(device)
     return [{k: _lm_tensor(v, dev) for k, v in seg.items()} for seg in states]
+
+
+def lm_params_to_arrays(model: LMModel) -> dict:
+    """The inverse of :func:`lm_params_from_arrays`: the model's parameters
+    as the reference's tree of numpy arrays, each segment's layers stacked
+    along a leading axis (``steps.param_tree``); a bfloat16 leaf comes out
+    as float32, which holds it exactly."""
+    def host(leaf):
+        t = adamw.value(leaf).detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return adamw.tree_map(host, param_tree(model))
+
+
+def _state_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _state_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_state_tree(t, device) for t in tree)
+    return _lm_tensor(tree, device)
+
+
+def opt_state_from_arrays(opt_cfg, state, device=None) -> dict:
+    """The reference's AdamW state (``jax.tree.map(np.asarray, state)``:
+    ``step`` and the moments ``m``, ``v`` in the parameters' tree) as the
+    port's, leaf for leaf in each leaf's dtype. With ``opt_cfg.moment_dtype``
+    ``"int8"`` each moment is a ``(codes int8, scales fp32)`` pair, else one
+    array of that dtype; anything else raises."""
+    dev = resolve_device(device)
+    out = _state_tree(state, dev)
+    want = opt_cfg.moment_dtype
+    for key in ("m", "v"):
+        for path, leaf in _moment_leaves(out[key]):
+            dts = tuple(str(t.dtype).removeprefix("torch.") for t in leaf)
+            if dts != (("int8", "float32") if want == "int8" else (want,)):
+                raise ValueError(f"{key}{list(path)}: moment of {dts} for "
+                                 f"moment_dtype {want!r}")
+    return out
+
+
+def _moment_leaves(tree, prefix=()):
+    """``(path, (tensor, ...))`` of each moment: a ``(codes, scales)``
+    pair or one tensor."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, (tree,)
+    elif isinstance(tree, tuple):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _moment_leaves(tree[k], prefix + (k,))
+    else:
+        for i, t in enumerate(tree):
+            yield from _moment_leaves(t, prefix + (i,))

@@ -1,1 +1,2 @@
-"""Entry points of the port (``python -m repro_torch.launch.solve``)."""
+"""Entry points of the port (``python -m repro_torch.launch.solve``,
+``python -m repro_torch.launch.train``)."""

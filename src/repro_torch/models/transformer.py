@@ -6,12 +6,15 @@ reference's tree paths: ``segments.{s}.{i}.attn.wq.w`` is layer ``i`` of
 segment ``s`` (``cfg.segments()``), the reference's
 ``params["segments"][s]["attn"]["wq"]["w"][i]`` (its layers are stacked
 along a leading axis, and looped with ``lax.scan``; here the layer loop
-is plain Python). Forward only: gradients come with the training path.
+is plain Python). Training takes its gradients through autograd
+(``steps.make_train_step``); with ``cfg.remat`` each block and each CE
+chunk is checkpointed, as the reference's are.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
@@ -132,13 +135,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def backbone(params: LMModel, cfg: ModelConfig, x, positions, *, causal=True,
              capacity_factor=1.25):
-    """Run all layers on embedded input x [B,S,d]. Returns (h, aux_loss)."""
+    """Run all layers on embedded input x [B,S,d]. Returns (h, aux_loss).
+
+    With ``cfg.remat`` and grad enabled each block is checkpointed (its
+    activations recomputed in backward), as the reference's scan body is:
+    the memory changes, not the values."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for (_, _, w), blocks in zip(cfg.segments(), params.segments):
         for lp in blocks:
-            x, al, _ = block_forward(lp, cfg, x, positions, window=w,
+            def run(xx, lp=lp, w=w):
+                return block_forward(lp, cfg, xx, positions, window=w,
                                      causal=causal,
-                                     capacity_factor=capacity_factor)
+                                     capacity_factor=capacity_factor)[:2]
+            x, al = (checkpoint(run, x, use_reentrant=False) if remat
+                     else run(x))
             aux = aux + al
     return params.final_norm(x), aux
 
@@ -222,17 +233,27 @@ def chunked_ce_loss(table, h, labels, chunk: int, mask=None):
     chunk = min(chunk, S)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    remat = torch.is_grad_enabled()  # the reference checkpoints every chunk
     for c in range(0, S, chunk):
-        hc, lc = h[:, c:c + chunk], labels[:, c:c + chunk].long()
+        lc = labels[:, c:c + chunk].long()
         valid = lc >= 0
         if mask is not None:
             valid = valid & mask[:, c:c + chunk]
-        logits = (hc @ table.T).float()  # [B,C,V]
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
-        tot = tot + torch.where(valid, logz - ll, 0.0).sum()
+        hc = h[:, c:c + chunk]
+        part = (checkpoint(_ce_chunk, table, hc, lc, valid,
+                           use_reentrant=False) if remat
+                else _ce_chunk(table, hc, lc, valid))
+        tot = tot + part
         cnt = cnt + valid.sum()
     return tot / torch.clamp(cnt, min=1)
+
+
+def _ce_chunk(table, hc, lc, valid):
+    """The summed CE of one chunk, its logits [B,C,V] in fp32."""
+    logits = (hc @ table.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+    return torch.where(valid, logz - ll, 0.0).sum()
 
 
 def loss_fn(params: LMModel, cfg: ModelConfig, batch):

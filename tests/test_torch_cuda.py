@@ -960,3 +960,79 @@ def test_lm_smoke_config_card_equals_cpu(card, no_tf32, arch):
     for seg_c, seg_g in zip(sc, sg, strict=True):
         for k in seg_c:
             close(seg_g[k], seg_c[k])
+
+
+# ------------------------------------------------------------ LM training --
+
+def _tree_values(tree):
+    from repro_torch.optim import adamw
+
+    return [adamw.value(leaf).detach() for _, leaf in adamw.tree_paths(tree)]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b", "rwkv6-1.6b", "internvl2-1b",
+                                  "hubert-xlarge"])
+def test_lm_smoke_train_steps_card_equal_cpu(card, no_tf32, arch):
+    """Two ``make_train_step`` steps of one SMOKE config per family on the
+    CPU, fp32, each also taken on the card from the CPU's parameters and
+    moments before it: loss and grad norm within 1e-4 (relative), each
+    parameter within 1e-4 of its leaf's max, except elements whose
+    gradient lay below 1e-3 of the leaf's max (Adam's ``g / (|g| + eps)``
+    flips with rounding there), held to 2·lr (the smoke's train phase;
+    free-running steps amplify fp32 rounding on the zero-init leaves)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, make_batch
+    from repro_torch.models.steps import (grad_tree, make_train_step,
+                                          param_tree)
+    from repro_torch.optim import adamw
+
+    cfg = get_smoke_config(arch)
+    ocfg = adamw.AdamWConfig(moment_dtype="float32", warmup_steps=2,
+                             total_steps=10)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(cfg, 2, 128, device="cpu")
+    state = adamw.init_state(ocfg, param_tree(cpu))
+    step = make_train_step(cfg, ocfg)
+    for _ in range(2):
+        gpu = copy.deepcopy(cpu).to(card)
+        gpu_state = adamw.tree_map(lambda t: t.to(card, copy=True), state)
+        cpu, state, mc = step(cpu, state, batch)
+        gpu, gpu_state, mg = step(gpu, gpu_state,
+                                  {k: v.to(card) for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * abs(
+                float(mc[k])), k
+        for p, q, g in zip(_tree_values(param_tree(cpu)),
+                           _tree_values(param_tree(gpu)),
+                           _tree_values(grad_tree(param_tree(cpu))),
+                           strict=True):
+            small = g.abs() < 1e-3 * g.abs().max()
+            err = (q.cpu() - p).abs()
+            assert (err[~small] <= 1e-4 * p.abs().max()).all()
+            assert (err[small] <= 2 * float(mc["lr"])).all()
+
+
+def test_lm_train_exact_resume_on_the_card(card, tmp_path, monkeypatch):
+    """qwen3-0.6b SMOKE through ``train`` on the card under deterministic
+    algorithms: 7 steps resumed to 10 from the checkpoint equal 10 steps
+    straight, bit for bit."""
+    from repro_torch.launch.train import train
+    from repro_torch.models.steps import param_tree
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        kw = dict(batch=2, seq=32, log_every=100, device=card)
+        full, _, _ = train("qwen3-0.6b", steps=10, **kw)
+        ck = str(tmp_path / "ck")
+        train("qwen3-0.6b", steps=7, ckpt_dir=ck, **kw)
+        res, state, losses = train("qwen3-0.6b", steps=10, ckpt_dir=ck, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(losses) == 3 and int(state["step"]) == 10
+    for a, b in zip(_tree_values(param_tree(full)),
+                    _tree_values(param_tree(res)), strict=True):
+        assert torch.equal(a, b)

@@ -210,9 +210,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
 # ----------------------------------------------------------- isolation --
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Every module of ``repro_torch`` (the LM side's ``models`` and its
-    configs included) and ``chip_smoke.py``, imported in a fresh
-    interpreter, bring in neither ``jax`` nor ``repro``."""
+    """Every module of ``repro_torch`` (the LM side's ``models``, its
+    configs, ``optim``, ``data`` and ``launch.train`` included) and
+    ``chip_smoke.py``, imported in a fresh interpreter, bring in neither
+    ``jax`` nor ``repro``."""
     script = r"""
 import importlib, pkgutil, runpy, sys
 import repro_torch
@@ -231,6 +232,8 @@ lm = {"repro_torch.models." + m for m in ("config", "layers", "attention",
                                           "decode", "steps")}
 lm |= {"repro_torch.configs." + m for m in ("qwen3_0p6b", "arctic_480b",
                                             "rwkv6_1p6b", "hymba_1p5b")}
+lm |= {"repro_torch.optim.adamw", "repro_torch.optim.compress",
+       "repro_torch.data.pipeline", "repro_torch.launch.train"}
 assert lm <= set(names), sorted(lm - set(names))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
