@@ -21,14 +21,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * complex: ``ell_gather`` and ``cheb_dia`` on Exciton(L=30) at n_b = 1
      and 384 in complex128 (bit-equal required) and complex64 (≤ 1e-5),
      ``cheb_dia`` on TopIns(40) at n_b = 384 in complex128;
-   * the bundle widths of the vertical layer, on the operators its
-     solves build: ``cheb_dia`` at Hubbard n_b = 128 (fp64; the layouts
-     phase's pillar 1 × 4) and on the Exciton pillar 1 × 4 solve's
-     one-shard operator padded to D_pad = 680,944 at n_b = 96
-     (complex128); ``ell_gather`` and its epilogue entry on the RoadNet
-     pillar 1 × 8 solve's one-shard RCM operator at n_b = 8 and on the
-     four shard blocks of the HubNet(48000) panel 4 × 2 solve's commvol
-     operator (with their halo rows) at n_b = 32, fp64;
+   * the bundle widths of the vertical layer: ``cheb_dia`` at Hubbard
+     n_b = 128 (fp64; the layouts phase's pillar 1 × 4) and on the
+     Exciton(L=30) pillar 1 × 4 one-shard operator padded to D_pad =
+     680,944 at n_b = 96 (complex128; the layouts phase's split at the
+     pillar solve's bundle width); ``ell_gather`` and its epilogue entry
+     on the RoadNet pillar 1 × 8 solve's one-shard RCM operator at
+     n_b = 8 and on the four shard blocks of the HubNet(48000) panel
+     4 × 2 solve's commvol operator (with their halo rows) at n_b = 32,
+     fp64;
    * the s-step filter's step-0 blocks: each of the 8 shards' ``[R + G,
      W_0]`` block of the depth-3 operators of HubNet(48000) and
      RoadNet(48000) at P = 8 (the two s-step solves' operators), against
@@ -120,13 +121,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    returned pair re-checked on the host against a scipy CSR of the port's
    own generator (‖A·x − θ·x‖ ≤ 1e-8):
 
-   * Hubbard(12,6, U=25, ranpot=1) at N_s = 512, fp64, τ just below the
+   * Hubbard(10,5, U=25, ranpot=1) (D = 63,504; the earlier phases'
+     (12,6) took 397 s here) at N_s = 512, fp64, τ just below the
      spectrum, tol cut to 5e-9 and n_target to 8; both kernels must
      launch;
-   * Exciton(L=30) (the exciton200 config cut to one card) at N_s = 384,
-     complex128, τ just below the spectrum, n_target cut to 8 (its
-     depth); both kernels must launch;
-   * Exciton(L=30) in the pillar layout 1 × 4 (the exciton200 config's
+   * Exciton(L=20) (the exciton200 config cut to one card, and from the
+     earlier phases' L = 30 to keep the run inside its time limit: D =
+     206,763) at N_s = 384, complex128, τ just below the spectrum,
+     n_target cut to 8 (its depth); both kernels must launch;
+   * Exciton(L=20) in the pillar layout 1 × 4 (the exciton200 config's
      production layout, paper Table 4) at N_s = 384, n_target cut from
      the config's 100 to 8 (the stack solve's; 16 until the service
      phase came in):
@@ -265,7 +268,28 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      scales) of the reference's per-leaf shape; step ms and peak memory;
    * the exact resume: qwen3-0.6b SMOKE through ``train`` on the card,
      a 10-step run against a 7-step run resumed to 10, the parameters
-     bit-equal, under ``torch.use_deterministic_algorithms``.
+     bit-equal, under ``torch.use_deterministic_algorithms``;
+12. dryrun — the dry-run on one card (``python -m repro_torch.launch.dryrun``,
+    in process), the launch counts set to 0 before it and read after:
+
+   * ``--eigen roadnet48k --layout panel --spmv-comm compressed
+     --spmv-schedule matching --plan --verify`` over the 4 × 2 grid: the
+     plan fields at the production mesh (256 chips), then one
+     macro-iteration (TSQR, the redistribution, a degree-32 filter, the
+     way back) of RoadNet(48000) in fp32 with the kernels, counted by the
+     op census and timed; every collective attributed, each kind's bytes
+     equal to the planner's prediction for the grid;
+   * ``--eigen hubbard16 --layout stack`` on one shard, the config's
+     Hubbard(16,8) cut to (12,6) for the grid: the ``cheb_dia`` route;
+   * ``--arch qwen3-0.6b --shape train_4k`` and ``--arch arctic-480b
+     --shape decode_32k``: the steps counted on the meta device (no card
+     memory), their per-chip placement on the 16 × 16 mesh;
+   * ``examples/torch_quickstart.py`` on the card;
+   * each kernel's census bytes for one launch (RoadNet(48000) at
+     n_b = 64 through ``ell_gather`` and its epilogue entry, Hubbard(8,4)'s
+     DIA form through ``cheb_dia``) equal to this script's bound bytes for
+     that launch; every record field finite; each eigen cell's measured ms
+     printed beside its roofline ``t_memory_s`` and their ratio.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
 and power limit, then ``{"ok": true, "device": {...}}``; the line before
@@ -274,7 +298,8 @@ each with its launches on the solves and the service's three runs, by
 run, and its dtype cases).
 ``--kernels-only`` stops after phase 3 and prints no result line (for
 tuning the kernels; the full run is the check); ``--lm-only`` runs phases
-10 and 11 alone, with no kernel build and no result line.
+10 and 11 alone, with no kernel build and no result line;
+``--dryrun-only`` runs the build and phase 12 alone, with no result line.
 """
 from __future__ import annotations
 
@@ -302,14 +327,20 @@ N_SEARCH = 512
 # the Hubbard solve's depth, cut from 16 to 8 to keep the whole run
 # inside its time limit once the plan phase came in (N_s stays 512)
 N_TARGET = 8
-MAX_ITERS = 60  # ~48 needed at the tolerance below (53 at 1e-10)
+MAX_ITERS = 80  # 54 needed at the tolerance below
 # the Hubbard solve's tolerance, cut from 1e-10 to keep the whole run
-# inside its time limit once the vertical layer's solves came in (the
-# residuals halve an iteration: 5 fewer iterations of ~13.6 s); the host
-# re-check stays at 1e-8
+# inside its time limit once the vertical layer's solves came in (at
+# (12,6) the residuals halved an iteration: 5 fewer iterations of
+# ~13.6 s); the host re-check stays at 1e-8
 CUT_TOL = 5e-9
 # the exciton200 config cut to one card (L = 200 -> 30), its N_s and N_t
 EXCITON = dict(L=30)
+# the solves' operators, cut further to keep the whole run inside its
+# time limit once the dryrun phase came in (a run of 990 s on one host
+# passed the limit on another): Hubbard (12,6) -> (10,5), Exciton L = 30
+# -> 20; the solve phase 759.3 s -> 167.2 s (H100 80GB HBM3 at 700 W)
+HUBBARD_SOLVE = dict(HUBBARD, n_sites=10, n_fermions=5)
+EXCITON_SOLVE = dict(L=20)
 # the Exciton stack solve's depth, cut from 16 to 8 to make room for the
 # plan phase
 EX_STACK_N_TARGET = 8
@@ -342,6 +373,21 @@ SVC_REQUESTS = (("a", RN_N_TARGET, 11), ("b", 8, 22))
 SVC_SHARDS, SVC_CKPT_INTERVAL, SVC_FAULT_AT = 8, 20, 30
 # the analysis phase's census filter degree
 ANALYSIS_DEGREE = 8
+# the dryrun phase: its eigen cells (the reference's tests/test_analysis.py
+# cell with --plan, and the hubbard16 stack cell, its Hubbard(16,8) cut to
+# the kernel phase's (12,6) for a grid of one shard), its LM cells, and the
+# example it runs on the card
+DRYRUN_EIGEN = {
+    "roadnet48k": ["--eigen", "roadnet48k", "--layout", "panel",
+                   "--spmv-comm", "compressed", "--spmv-schedule",
+                   "matching", "--plan", "--verify", "--grid", "4x2"],
+    "hubbard16": ["--eigen", "hubbard16", "--layout", "stack", "--verify",
+                  "--grid", "1x1", "--grid-params", "n_sites=12,n_fermions=6"],
+}
+DRYRUN_LM = (("qwen3-0.6b", "train_4k"), ("arctic-480b", "decode_32k"))
+DRYRUN_EXAMPLE = "examples/torch_quickstart.py"
+# the census-bytes launches: n_b, and Hubbard(8,4)'s DIA form for cheb_dia
+DRYRUN_NB, DRYRUN_DIA = 64, dict(n_sites=8, n_fermions=4, U=4.0, ranpot=1.0)
 # the LM phase: the six archs one card holds whole, at full width and
 # depth; the four it cannot hold, at full width with depth cut to
 # LM_CUT_LAYERS (arctic-480b: 2 x 13.6 B parameters, 55 GB in bf16)
@@ -420,6 +466,23 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ell_bound_bytes(cpe, R: int, Rx: int, nb: int, S: int,
+                    epilogue: bool) -> float:
+    """Bytes of an ELL launch's bound: the operator as the kernel reads it
+    (row pointers, an int32 column and a value an entry), x [Rx, nb], with
+    the epilogue w1 and w2 [R, nb], and y [R, nb], each once."""
+    from repro_torch.kernels import plan
+
+    return (plan.ell_bytes_per_row(cpe) * R
+            + (Rx + (3 if epilogue else 1) * R) * nb * S)
+
+
+def dia_bound_bytes(cp, nb: int, S: int) -> float:
+    """Bytes of a DIA step's bound: x (= w1), w2 and y [R, nb] once, and
+    the compact operator its kernel reads, once."""
+    return 3 * cp.R * nb * S + cp.bytes_per_row * cp.R
 
 
 def compare(name, case, dtype, kernel, plain, n_bytes, n_ops, library=None,
@@ -578,7 +641,7 @@ def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
                     dtype=torch.complex128 if tdt.is_complex
                     else torch.float64).to(tdt)
     flops = (8.0 if tdt.is_complex else 2.0) * nnz * nb
-    n_bytes = (R + Rx) * nb * S + nnz * (4 + S)
+    n_bytes = ell_bound_bytes(cpe, R, Rx, nb, S, epilogue=False)
     records.append(compare(
         "ell_gather", f"{label} n_b={nb}", dtype,
         lambda: k_ell(cols, vals, x, compact=cpe),
@@ -590,9 +653,7 @@ def ell_case(records: list, label: str, cols, vals, nb: int, dtype: str,
                               dtype=torch.complex128 if tdt.is_complex
                               else torch.float64).to(tdt) for _ in range(2))
         a, b = 0.013, -0.4
-        # the operator as the kernel reads it, x, w1, w2 and y once
-        cheb_bytes = (plan.ell_bytes_per_row(cpe) * R
-                      + (Rx + 3 * R) * nb * S)
+        cheb_bytes = ell_bound_bytes(cpe, R, Rx, nb, S, epilogue=True)
         epi_flops = (8.0 if tdt.is_complex else 4.0) * R * nb
         records.append(compare(
             "ell_gather_cheb", f"{label} n_b={nb}", dtype,
@@ -630,9 +691,8 @@ def dia_case(records: list, label: str, dia, nb: int, dtype: str, gen,
     x, w2 = (torch.randn((R, nb), generator=gen, device="cuda",
                          dtype=torch.complex128 if tdt.is_complex
                          else torch.float64).to(tdt) for _ in range(2))
-    # x (= w1), w2 and y once, and the compact operator the kernel reads,
-    # once; the earlier formula counted dense dvals
-    n_bytes = 3 * R * nb * S + cp.bytes_per_row * R
+    # the earlier formula counted dense dvals
+    n_bytes = dia_bound_bytes(cp, nb, S)
     dense_ms, _ = bound_ms(3 * R * nb * S + dia.dvals.numel() * S, 0.0, dtype)
     flops = ((8.0 * cp.nnz + 8.0 * R) if tdt.is_complex
              else (2.0 * cp.nnz + 4.0 * R)) * nb
@@ -1810,22 +1870,22 @@ def phase_solves(fit_path: str) -> dict:
     out = {}
     # a Ritz value from above: τ = estimate − 0.1 lies below the spectrum
     # as long as the estimate is within 0.1 of the lowest eigenvalue
-    A, lam = host_operator(Hubbard, HUBBARD, "SA")
+    A, lam = host_operator(Hubbard, HUBBARD_SOLVE, "SA")
     out["hubbard"] = run_solve(
-        "hubbard", "Hubbard", HUBBARD, A, n_search=N_SEARCH,
+        "hubbard", "Hubbard", HUBBARD_SOLVE, A, n_search=N_SEARCH,
         n_target=N_TARGET, target=lam - 0.1, max_iters=MAX_ITERS,
         launched=both, tol=CUT_TOL)
     out["hubbard"]["eigsh_lower_edge"] = lam
     del A
-    A, lam = host_operator(Exciton, EXCITON, "SA")
+    A, lam = host_operator(Exciton, EXCITON_SOLVE, "SA")
     out["exciton"] = run_solve(
-        "exciton", "Exciton", EXCITON, A, n_search=EX_N_SEARCH,
+        "exciton", "Exciton", EXCITON_SOLVE, A, n_search=EX_N_SEARCH,
         n_target=EX_STACK_N_TARGET, target=lam - 0.1, max_iters=EX_MAX_ITERS,
         launched=both)
     out["exciton"]["eigsh_lower_edge"] = lam
     # the vertical layer: the exciton200 config's pillar layout, its N_t
     out["exciton_pillar"] = run_solve(
-        "exciton_pillar", "Exciton", EXCITON, A, n_search=EX_N_SEARCH,
+        "exciton_pillar", "Exciton", EXCITON_SOLVE, A, n_search=EX_N_SEARCH,
         n_target=EX_N_TARGET, target=lam - 0.1, max_iters=EX_MAX_ITERS,
         launched=both, layout="pillar", engine=grid(EX_PILLAR))
     agree_returned(out, "exciton", "exciton_pillar", EX_STACK_N_TARGET)
@@ -2819,6 +2879,143 @@ def phase_train(smi: str, out_dir: str) -> dict:
     return rec
 
 
+def _finite_fields(rec, where: str) -> None:
+    """Every number in ``rec`` (nested) must be finite."""
+    if isinstance(rec, dict):
+        for k, v in rec.items():
+            _finite_fields(v, f"{where}.{k}")
+    elif isinstance(rec, (list, tuple)):
+        for i, v in enumerate(rec):
+            _finite_fields(v, f"{where}[{i}]")
+    elif isinstance(rec, float) and not math.isfinite(rec):
+        raise SmokeFailure(f"{where} = {rec} is not finite")
+
+
+def census_launches() -> list:
+    """One launch of each kernel under the op census, its counted bytes
+    against this script's bound bytes for that launch (``ell_case``,
+    ``dia_case``): RoadNet(48000) at n_b = 64 through ``ell_gather`` and
+    its epilogue entry, Hubbard(8,4)'s DIA form through ``cheb_dia``, fp64.
+    These launches are comparisons, outside the main path's counts."""
+    import torch
+
+    from repro_torch.core.spmv import build_dist_ell
+    from repro_torch.kernels import ops, plan
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.matrices import Hubbard, RoadNet
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    ell = build_dist_ell(RoadNet(**ROADNET).build_csr(), 1, dtype="float64",
+                         device="cuda")
+    cols, vals = ell.cols[0], ell.vals[0]
+    cpe = plan.compact_ell(cols, vals)
+    R, nb, S = cols.shape[0], DRYRUN_NB, 8
+    x, w1, w2 = (torch.randn((R, nb), generator=gen, device="cuda",
+                             dtype=torch.float64) for _ in range(3))
+    hub = build_dist_ell(Hubbard(**DRYRUN_DIA).build_csr(), 1,
+                         dtype="float64", device="cuda")
+    dia = ops.plan_dia(hub.cols[0], hub.vals[0], hub.R, device="cuda")
+    cp, span = dia.compact, dia.span  # built once, outside the census
+    xd, w2d = (torch.randn((hub.R, nb), generator=gen, device="cuda",
+                           dtype=torch.float64) for _ in range(2))
+    cases = (
+        ("ell_gather", lambda: ops.ell_spmv(cols, vals, x, compact=cpe),
+         ell_bound_bytes(cpe, R, R, nb, S, epilogue=False)),
+        ("ell_gather_cheb", lambda: ops.ell_spmv(
+            cols, vals, x, compact=cpe, epilogue=(w1, w2, 0.013, -0.4)),
+         ell_bound_bytes(cpe, R, R, nb, S, epilogue=True)),
+        ("cheb_dia", lambda: ops.cheb_dia(
+            dia.offsets, dia.dvals, xd, xd, w2d, 0.013, -0.4, compact=cp,
+            span=span), dia_bound_bytes(cp, nb, S)),
+    )
+    for name, launch, want in cases:
+        _, c = count_ops(launch)
+        torch.cuda.synchronize()
+        got = c.kernels.get(name, {})
+        rec = dict(name=name, calls=got.get("calls"), census_bytes=got.get(
+            "bytes"), bound_bytes=want, ops=c.ops)
+        log(f"[dryrun] census of one {name} launch: {rec['census_bytes']} B "
+            f"against the bound's {want} B ({c.ops} op)")
+        if got.get("calls") != 1 or c.ops != 1 or not math.isclose(
+                got["bytes"], want, rel_tol=1e-12):
+            raise SmokeFailure(f"the census of one {name} launch ({got}, "
+                               f"{c.ops} ops) is not its bound's {want} B")
+        out.append(rec)
+    return out
+
+
+def phase_dryrun(smi: str) -> dict:
+    """Phase 12: the dry-run cells through the CLI's entry point, the
+    example on the card, the census of one launch of each kernel."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+
+    t_start = time.perf_counter()
+    out: dict = {"cells": {}, "nvidia_smi": smi}
+    build.reset_launches()
+    for name, argv in DRYRUN_EIGEN.items():
+        t0 = time.perf_counter()
+        try:
+            (rec,) = dryrun.main(argv)
+        except SystemExit as e:
+            raise SmokeFailure(f"dryrun {name}: --verify failed (exit "
+                               f"{e.code})") from None
+        rec["seconds"] = time.perf_counter() - t0
+        if not (rec.get("verify_ok") and rec["verify_errors"] == []):
+            raise SmokeFailure(f"dryrun {name}: verify_ok is false: "
+                               f"{rec.get('verify_errors')}")
+        if not rec["grid_coll_match"]:
+            raise SmokeFailure(
+                f"dryrun {name}: the grid's collective bytes "
+                f"{rec['grid_coll_bytes']} are not the planner's "
+                f"{rec['grid_coll_pred_bytes']}")
+        _finite_fields(rec, f"dryrun[{name}]")
+        t_mem = rec["grid_roofline"]["t_memory_s"] * 1e3
+        log(f"[dryrun] {name} {rec['grid_layout']} on {smi}: measured "
+            f"{rec['grid_ms']:.3f} ms a macro-iteration, roofline t_memory "
+            f"{t_mem:.3f} ms, ratio {rec['grid_ms'] / t_mem:.3f} "
+            f"(counted {rec['grid_hbm_bytes']:.4e} B, "
+            f"{rec['grid_flops']:.4e} flops; kernels {rec['grid_kernels']}; "
+            f"{rec['seconds']:.1f} s)")
+        out["cells"][name] = rec
+    for arch, shape in DRYRUN_LM:
+        t0 = time.perf_counter()
+        (rec,) = dryrun.main(["--arch", arch, "--shape", shape])
+        rec["seconds"] = time.perf_counter() - t0
+        if rec["status"] != "ok":
+            raise SmokeFailure(f"dryrun {arch} x {shape}: {rec}")
+        _finite_fields({k: v for k, v in rec.items() if v is not None},
+                       f"dryrun[{arch}]")
+        log(f"[dryrun] {arch} x {shape}: {rec['ops']} ops counted on the "
+            f"meta device, {rec['flops_per_chip']:.4e} flops and "
+            f"{rec['hbm_bytes_per_chip']:.4e} B a chip of 256; "
+            f"{rec['seconds']:.1f} s")
+        out["cells"][f"{arch}/{shape}"] = rec
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", os.path.join(ROOT, DRYRUN_EXAMPLE))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    example.main(["--device", "cuda"])
+    out["example_seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["launches"] = dict(build.launches)
+    for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
+        if not out["launches"][k]:
+            raise SmokeFailure(f"the dryrun phase launched no {k}: "
+                               f"{out['launches']}")
+    log(f"[dryrun] launches {out['launches']}; the example "
+        f"{out['example_seconds']:.1f} s")
+    out["census"] = census_launches()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def run_lm_phases(smi: str, out_dir: str) -> tuple:
     """Phases 10 (lm) and 11 (train), each timed."""
     t0 = time.perf_counter()
@@ -2871,6 +3068,15 @@ def run(args) -> int:
 
     build.load()
     log(f"[build] {build.build_seconds:.2f} s\n{build.build_log}")
+    if args.dryrun_only:
+        dry = phase_dryrun(smi)
+        log(f"[dryrun] phase {dry['seconds']:.1f} s")
+        if args.out:
+            write_record(args.out, dict(device=dict(name=name, count=count,
+                                                    nvidia_smi=smi),
+                                        build_seconds=build.build_seconds,
+                                        dryrun=dry))
+        return 0
 
     t0 = time.perf_counter()
     records: list = []
@@ -2911,6 +3117,8 @@ def run(args) -> int:
     analysis["seconds"] = time.perf_counter() - t0
     log(f"[analysis] phase {analysis['seconds']:.1f} s")
     lm, train = run_lm_phases(smi, out_dir)
+    dry = phase_dryrun(smi)
+    log(f"[dryrun] phase {dry['seconds']:.1f} s")
     main_case = f"Hubbard n_b={N_SEARCH}"  # the shape of the filter's steps
     line = []
     for k in ("ell_gather", "ell_gather_cheb", "cheb_dia"):
@@ -2924,6 +3132,7 @@ def run(args) -> int:
                  if c["name"] == k and not c["case"].startswith("sweep")]
         by_solve = {s: v["launches"][k]
                     for s, v in {**solves, **service["runs"]}.items()}
+        by_solve["dryrun"] = dry["launches"][k]
         line.append(dict(
             name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
             launches=sum(by_solve.values()), launches_by_solve=by_solve,
@@ -2939,7 +3148,7 @@ def run(args) -> int:
                                     layouts=layouts, plan=plan,
                                     solves=solves, service=service,
                                     analysis=analysis, lm=lm, train=train,
-                                    kernels=line))
+                                    dryrun=dry, kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
         "check to the result")
     log(json.dumps({"kernels": line}))
@@ -2959,6 +3168,9 @@ def main(argv=None) -> int:
                     help="run the device check and the LM phases (serving, "
                          "then training) alone (no kernel build, no result "
                          "line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run the device check, the build and the dryrun "
+                         "phase alone (no result line)")
     args = ap.parse_args(argv)
     try:
         return run(args)

@@ -47,6 +47,7 @@ import numpy as np
 
 __all__ = ["ExpectedTerm", "CensusReport", "CollectiveOp", "HLO_KINDS",
            "attribute", "expected_census", "measured", "census_of",
+           "macro_iteration",
            "extra_psum", "skip_gram", "run_census_cell", "census_cell_tag"]
 
 _TOL = 1e-6
@@ -221,6 +222,29 @@ def census_cell_tag(layout, comm, schedule, overlap, use_kernel, sstep,
             f"/{balance}+{reorder}/P{P_total}")
 
 
+def macro_iteration(fd, degree: int, gram: bool = True):
+    """One FD macro-iteration of ``fd`` from its own bound pieces: TSQR
+    (or SVQB) in the stack layout, the redistribution to the filter
+    layout, a degree-``degree`` filter over the bundles, the
+    redistribution back and, with ``gram``, the Gram all-reduce. The
+    filter maps the operator's Gershgorin interval onto [-1, 1] with
+    coefficients ``linspace(1, 0.5)``. Returns ``iteration(V) -> (V_s,
+    G)`` (``G`` None without ``gram``)."""
+    if degree < 2:
+        raise ValueError("chebyshev_filter needs degree >= 2")
+    bound = float(fd.ell.vals.abs().sum(-1).max())
+    lam = (-bound, bound)
+    mu = np.linspace(1.0, 0.5, degree + 1)
+
+    def iteration(V):
+        Q = fd.orthogonalize(V)
+        Vp = fd.to_panel(Q)
+        Vs = fd.to_stack(fd._filter_bundles(Vp, mu, degree, lam))
+        return Vs, fd.gram(Vs, Vs) if gram else None
+
+    return iteration
+
+
 def census_of(fd, cp, *, degree: int, cell: str = "", wrap=None,
               extra_errors=()) -> CensusReport:
     """Run one macro-iteration of ``fd`` (a
@@ -235,21 +259,9 @@ def census_of(fd, cp, *, degree: int, cell: str = "", wrap=None,
 
     from ..core.shards import CommTrace
 
-    if degree < 2:
-        raise ValueError("chebyshev_filter needs degree >= 2")
     n_s, N_col = fd.cfg.n_search, fd.N_col
     S_d = fd.ell.vals.element_size()
-    bound = float(fd.ell.vals.abs().sum(-1).max())
-    lam = (-bound, bound)
-    mu = np.linspace(1.0, 0.5, degree + 1)
-
-    def iteration(V):
-        Q = fd.orthogonalize(V)
-        Vp = fd.to_panel(Q)
-        bundles = fd._filter_bundles(Vp, mu, degree, lam)
-        Vs = fd.to_stack(bundles)
-        return Vs, fd.gram(Vs, Vs)
-
+    iteration = macro_iteration(fd, degree)
     if wrap is not None:
         iteration = wrap(iteration, fd)
     V = fd.random_search_vectors(fd.generator(0))

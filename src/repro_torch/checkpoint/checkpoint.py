@@ -27,6 +27,12 @@ Restart semantics, as the reference's:
   "shape": [n_row, n_col]}``;
 * each restored leaf is a tensor on the device given (or its template
   leaf's device): a CUDA leaf comes back on the card with its bits.
+
+numpy has no bfloat16, so a bfloat16 leaf is written as the reference
+writes it (through ``ml_dtypes``, which the port does without): its
+2-byte bit patterns under the ``.npy`` descr ``'<V2'``, with manifest
+dtype ``"bfloat16"``; :func:`restore` reads the manifest's dtype and
+views the bits as ``torch.bfloat16`` again.
 """
 from __future__ import annotations
 
@@ -102,10 +108,39 @@ def _spec_to_json(spec):
     return [list(a) if isinstance(a, (tuple, list)) else a for a in spec]
 
 
-def _to_host(leaf) -> np.ndarray:
+#: The ``.npy`` descr and manifest dtype of a bfloat16 leaf, as
+#: ``ml_dtypes`` (the reference's numpy bfloat16) writes them.
+BF16_DESCR, BF16 = "<V2", "bfloat16"
+
+
+def _save_leaf(path: str, leaf) -> tuple[list, str]:
+    """Write one leaf's ``.npy``; returns its shape and manifest dtype."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().resolve_conj().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach().resolve_conj().cpu()
+        if leaf.dtype == torch.bfloat16:
+            bits = leaf.contiguous().view(torch.int16).numpy()
+            with open(path, "wb") as f:
+                np.lib.format.write_array_header_1_0(
+                    f, {"descr": BF16_DESCR, "fortran_order": False,
+                        "shape": bits.shape})
+                f.write(bits.tobytes())
+            return list(bits.shape), BF16
+        arr = leaf.numpy()
+    else:
+        arr = np.asarray(leaf)
+    np.save(path, arr)
+    return list(arr.shape), str(arr.dtype)
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    """One leaf's ``.npy`` as a CPU tensor of the manifest's dtype."""
+    arr = np.load(path)
+    if dtype != BF16:
+        return torch.from_numpy(arr)
+    if arr.dtype.itemsize != 2:
+        raise ValueError(f"{path}: a bfloat16 leaf of {arr.dtype} "
+                         "(2-byte elements expected)")
+    return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
 
 
 def _json_default(o):
@@ -134,10 +169,8 @@ def save(directory: str, step: int, tree, specs=None,
                       "shape": [int(grid[0]), int(grid[1])]}),
             "leaves": []}
     for i, (leaf, sp) in enumerate(zip(leaves, spec_leaves)):
-        arr = _to_host(leaf)
-        np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
-        meta["leaves"].append({"shape": list(arr.shape),
-                               "dtype": str(arr.dtype),
+        shape, dtype = _save_leaf(os.path.join(tmp, f"arr_{i}.npy"), leaf)
+        meta["leaves"].append({"shape": shape, "dtype": dtype,
                                "spec": _spec_to_json(sp)})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(meta, f, default=_json_default)
@@ -186,14 +219,14 @@ def restore(directory: str, template, device=None, step: int | None = None):
     dev = None if device is None else resolve_device(device)
     out = []
     for i, (leaf, lm) in enumerate(zip(leaves, meta["leaves"])):
-        arr = np.load(os.path.join(path, f"arr_{i}.npy"))
-        if list(arr.shape) != lm["shape"]:
-            raise ValueError(f"leaf {i}: file shape {arr.shape} != manifest "
-                             f"{lm['shape']}")
+        t = _load_leaf(os.path.join(path, f"arr_{i}.npy"), lm["dtype"])
+        if list(t.shape) != lm["shape"]:
+            raise ValueError(f"leaf {i}: file shape {tuple(t.shape)} != "
+                             f"manifest {lm['shape']}")
         to = dev if dev is not None else (
             leaf.device if isinstance(leaf, torch.Tensor)
             else torch.device("cpu"))
-        out.append(torch.from_numpy(arr).to(to))
+        out.append(t.to(to))
     return _unflatten(template, out), step, meta["extra"]
 
 

@@ -405,6 +405,7 @@ class _WireObjective:
         #: uniformly spaced
         self.cumcost = (np.concatenate([[0.0], np.cumsum(cost)])
                         if cost is not None else None)
+        self._shift = None  # value()'s flat [k, q] index, built once
 
     def remote_set(self, a: int, b: int) -> np.ndarray:
         """Sorted distinct columns outside [a, b) referenced by rows
@@ -417,11 +418,19 @@ class _WireObjective:
                 for p in range(self.P)]
 
     def pair_counts(self, bnds: np.ndarray, S: list[np.ndarray]) -> np.ndarray:
-        pc = np.zeros((self.P, self.P), dtype=np.int64)
-        for p, Sp in enumerate(S):
-            if Sp.size:
-                pc[:, p] = np.diff(np.searchsorted(Sp, bnds))
-        return pc
+        """``pc[q, p]``: the columns of ``S[p]`` in block q. One pass over
+        all remote sets: each column's sender block is where it falls
+        among the cuts (the same counts as ``diff(searchsorted(S_p,
+        bnds))`` receiver by receiver)."""
+        P = self.P
+        sizes = np.fromiter(map(len, S), dtype=np.int64, count=P)
+        if not sizes.any():
+            return np.zeros((P, P), dtype=np.int64)
+        sender = np.searchsorted(bnds, np.concatenate(S), side="right") - 1
+        receiver = np.repeat(np.arange(P), sizes)
+        inside = (sender >= 0) & (sender < P)  # outside the cuts: no block
+        return np.bincount(sender[inside] * P + receiver[inside],
+                           minlength=P * P).reshape(P, P)
 
     #: above this shard count the descent objective substitutes the
     #: cyclic round sum for the matching one — the greedy matching
@@ -431,6 +440,14 @@ class _WireObjective:
     #: under-counts, the wire)
     MATCHING_EVAL_MAX_P = 32
 
+    def _cyclic(self) -> None:
+        """``_shift[k, q]``: the flat index of ``pc[q, (q + k) % P]``."""
+        if self._shift is None:
+            q = np.arange(self.P)
+            self._shift = q[None, :] * self.P + (q[None, :] + q[:, None]) \
+                % self.P
+            self._q, self._r = self._shift // self.P, self._shift % self.P
+
     def value(self, pc: np.ndarray) -> tuple[int, int]:
         """(wire, progress): ``wire`` is the engines' moved-entry total
         ``P·L + H_cyclic + H_matching``; ``progress`` (Σ pc², the
@@ -438,28 +455,106 @@ class _WireObjective:
         the max-based wire terms are still pinned by other pairs — the
         descent needs it to split several hub regions one cut at a
         time."""
-        if not pc.any():
+        L = int(pc.max())  # the counts are >= 0
+        if L == 0:
             return (0, 0)
-        L = int(pc.max())
         # vectorized cyclic round sum Σ_k max_q pc[q, (q+k) % P] — the
         # descent calls this thousands of times, so it must not build
         # the schedule's permutation tuples
         P = self.P
-        q = np.arange(P)
-        shifted = pc[q[:, None], (q[:, None] + q[None, :]) % P]  # [q, k]
-        H_cyc = int(shifted[:, 1:].max(axis=0).sum())
+        self._cyclic()
+        flat = pc.reshape(-1)
+        # [k, q]: pc[q, (q+k) % P], each shift's maximum along a row
+        H_cyc = int(flat[self._shift[1:]].max(axis=1).sum())
         if P <= self.MATCHING_EVAL_MAX_P:
             from .spmv import neighbor_schedule  # spmv imports this module
             H_mat = int(sum(neighbor_schedule(pc, "matching")[1]))
         else:
             H_mat = H_cyc
-        return (P * L + H_cyc + H_mat,
-                int((pc.astype(np.int64) ** 2).sum()))
+        flat = flat.astype(np.int64, copy=False)
+        return (P * L + H_cyc + H_mat, int(np.dot(flat, flat)))
 
     def evaluate(self, bnds: np.ndarray, S: list[np.ndarray] | None = None
                  ) -> tuple[tuple[int, int], list[np.ndarray]]:
         S = self.remote_sets(bnds) if S is None else S
         return self.value(self.pair_counts(bnds, S)), S
+
+    def _moved_lines(self, pc: np.ndarray, needs: tuple, bnds: np.ndarray,
+                     p: int, c: int, S2: list[np.ndarray]) -> tuple:
+        """Rows and columns ``p - 1`` and ``p`` of :meth:`pair_counts`
+        after cut ``p`` moves to ``c`` (``[2, P]`` and ``[P, 2]``); every
+        other count is ``pc``'s. The columns between the old and the new
+        cut change sender block (``needs``: every remote column sorted,
+        with its receiver), and receivers ``p - 1`` and ``p``, whose
+        remote sets ``S2`` changed, are counted anew."""
+        old = int(bnds[p])
+        cols, receiver = needs
+        i0, i1 = np.searchsorted(cols, (min(old, c), max(old, c)))
+        delta = np.bincount(receiver[i0:i1], minlength=self.P)
+        rows = pc[p - 1:p + 1].copy()
+        if c > old:  # [old, c) moves from block p to block p - 1
+            rows[0] += delta
+            rows[1] -= delta
+        else:
+            rows[0] -= delta
+            rows[1] += delta
+        trial = bnds.copy()
+        trial[p] = c
+        lines = np.stack([np.diff(np.searchsorted(S2[r], trial))
+                          for r in (p - 1, p)], axis=1)
+        rows[:, p - 1:p + 1] = lines[p - 1:p + 1]
+        return rows, lines
+
+    def _with_lines(self, pc: np.ndarray, p: int, rows, lines) -> np.ndarray:
+        out = pc.copy()
+        out[p - 1:p + 1] = rows
+        out[:, p - 1:p + 1] = lines
+        return out
+
+    def _line_base(self, pc: np.ndarray, p: int) -> tuple:
+        """What :meth:`value` takes from the counts outside rows and
+        columns ``p - 1``, ``p``: their max, their sum of squares and,
+        for each cyclic shift k ≥ 1, their max along it; and where along
+        each shift the two rows and two columns lie."""
+        P = self.P
+        self._cyclic()
+        live = np.ones(P, dtype=bool)
+        live[p - 1:p + 1] = False
+        sub = pc[live][:, live].reshape(-1)
+        shifted = np.where(live[self._q] & live[self._r],
+                           pc.reshape(-1)[self._shift], 0)
+        k = np.arange(1, P)
+        at = ((p - 1 + k) % P, (p + k) % P, (p - 1 - k) % P, (p - k) % P)
+        return (int(sub.max()) if sub.size else 0, int(np.dot(sub, sub)),
+                shifted[1:].max(axis=1), at)
+
+    def _lines_value(self, base: tuple, p: int, rows, lines) -> tuple[int, int]:
+        """:meth:`value` of the counts ``base`` came from with rows and
+        columns ``p - 1``, ``p`` replaced by ``rows`` and ``lines``, where
+        P is past ``MATCHING_EVAL_MAX_P`` (the matching term is the cyclic
+        one): the same integers, from O(P) of the P² counts."""
+        base_L, base_sq, base_k, (a, b, c, d) = base
+        L = max(base_L, int(rows.max()), int(lines.max()))
+        if L == 0:
+            return (0, 0)
+        h = np.maximum(base_k, rows[0, a])
+        np.maximum(h, rows[1, b], out=h)
+        np.maximum(h, lines[c, 0], out=h)
+        np.maximum(h, lines[d, 1], out=h)
+        r, col = rows.reshape(-1), lines.reshape(-1)
+        both = lines[p - 1:p + 1].reshape(-1)
+        sq = base_sq + int(np.dot(r, r) + np.dot(col, col)
+                           - np.dot(both, both))
+        return (self.P * L + 2 * int(h.sum()), sq)
+
+    def _needs(self, S: list[np.ndarray]) -> tuple:
+        """Every remote column of ``S`` sorted, with its receiver."""
+        cols = np.concatenate(S)
+        receiver = np.repeat(np.arange(self.P),
+                             np.fromiter(map(len, S), dtype=np.int64,
+                                         count=self.P))
+        order = np.argsort(cols, kind="stable")
+        return cols[order], receiver[order]
 
     def refine(self, bnds: np.ndarray, cap: int, *, passes: int = 3,
                grid: int = 13) -> tuple[np.ndarray, tuple[int, int]]:
@@ -472,7 +567,9 @@ class _WireObjective:
             passes = min(passes, 2)
             grid = min(grid, 9)
         b = bnds.astype(np.int64).copy()
-        J, S = self.evaluate(b)
+        S = self.remote_sets(b)
+        pc = self.pair_counts(b, S)
+        J, needs = self.value(pc), self._needs(S)
         for _ in range(passes):
             improved = False
             for p in range(1, self.P):
@@ -481,7 +578,9 @@ class _WireObjective:
                 if hi <= lo:
                     continue
                 span = hi - lo
-                best_c, best_J, best_S2 = int(b[p]), J, None
+                best_c, best_J, best_S2, best_pc = int(b[p]), J, None, None
+                base = (self._line_base(pc, p)
+                        if self.P > self.MATCHING_EVAL_MAX_P else None)
                 seen = {int(b[p])}
                 for level in range(2):
                     center = best_c
@@ -503,18 +602,21 @@ class _WireObjective:
                         if c in seen:
                             continue
                         seen.add(c)
-                        trial = b.copy()
-                        trial[p] = c
                         S2 = list(S)
-                        S2[p - 1] = self.remote_set(int(trial[p - 1]), c)
-                        S2[p] = self.remote_set(c, int(trial[p + 1]))
-                        Jt = self.value(self.pair_counts(trial, S2))
+                        S2[p - 1] = self.remote_set(int(b[p - 1]), c)
+                        S2[p] = self.remote_set(c, int(b[p + 1]))
+                        lines = self._moved_lines(pc, needs, b, p, c, S2)
+                        Jt = (self._lines_value(base, p, *lines)
+                              if base is not None else
+                              self.value(self._with_lines(pc, p, *lines)))
                         if Jt < best_J:
-                            best_c, best_J, best_S2 = c, Jt, S2
+                            best_c, best_J, best_S2, best_pc = \
+                                c, Jt, S2, lines
                 if best_c != int(b[p]) and best_S2 is not None:
                     b[p] = best_c
                     J = best_J
-                    S = best_S2
+                    S, pc = best_S2, self._with_lines(pc, p, *best_pc)
+                    needs = self._needs(S)
                     improved = True
             if not improved:
                 break

@@ -548,7 +548,7 @@ def _contract(blk: _Block, p: int, x, y0, epilogue, out):
                         else blk.compact[p], epilogue=epilogue, out=out)
 
 
-def _contract_plain(blk: _Block, x, y0, epilogue):
+def _contract_plain(blk: _Block, x, y0, epilogue, as_kernel: bool = False):
     """The plain version of :func:`_contract` for every shard at once:
     ``x [P, Rx, n_b]``, ``y0 [P, R, n_b]`` (None: 0), the epilogue's
     ``w1, w2 [P, R, n_b]``. Per element it is the same chain of
@@ -556,7 +556,15 @@ def _contract_plain(blk: _Block, x, y0, epilogue):
     Each slot's rows come from one ``index_select`` over the shards'
     stacked rows, as in ``ref.ell_spmv_acc_ref``: indexing with two index
     tensors runs threaded even at n_b = 1, and stalls when the CPU's
-    cores are oversubscribed."""
+    cores are oversubscribed. With ``as_kernel`` (the kernels on, on the
+    CPU) it stands for the kernel's launch per shard, and an op census
+    counts those launches (``ops.kernel_calls``)."""
+    if as_kernel and ops.censuses:
+        with ops.kernel_calls(lambda: [
+                ops.ell_cost(blk.cols[p], blk.vals[p], x.shape[1],
+                             x.shape[2], epilogue is not None)
+                for p in range(blk.cols.shape[0])]):
+            return _contract_plain(blk, x, y0, epilogue)
     P, R, W = blk.cols.shape
     Rx, nb = x.shape[1], x.shape[2]
     acc = y0 if y0 is not None else torch.zeros(
@@ -691,7 +699,7 @@ class _Engine:
             e = epi if last else None
             prior = acc if not kernel else out if started else None
             if not kernel:
-                acc = _contract_plain(blk, src, acc, e)
+                acc = _contract_plain(blk, src, acc, e, self.use_kernel)
             else:
                 for p in range(P):
                     ep = None if e is None else (e[0][p], e[1][p], e[2], e[3])
@@ -1300,7 +1308,7 @@ class _SstepGroup:
         launch per shard into ``out``, or the plain version at once;
         ``label`` names the phase in the group's trace."""
         if not kernel:
-            out = _contract_plain(blk, x, y0, epilogue)
+            out = _contract_plain(blk, x, y0, epilogue, self.use_kernel)
         else:
             for p in range(self.sell.P):
                 ep = (None if epilogue is None else

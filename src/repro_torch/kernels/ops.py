@@ -16,9 +16,19 @@ Chebyshev step is a structural choice made once, at operator build time
 (``core/spmv.py``): the DIA whole-step when :func:`plan_dia` accepts the
 operator (and it needs no halo), the ELL contraction whose last block
 carries the fused epilogue otherwise.
+
+An op census (``launch/op_analysis.py``) sees PyTorch's own ops, not a
+kernel launched through ``ctypes``. So each call of a wrapper reports
+itself to the active censuses (:data:`censuses`) as one op of its kernel,
+with the bytes of its bound (the operator as the kernel reads it, x,
+w1 and w2 where the kernel takes them, and y, each once: ``PERF.md`` §6)
+and 2·nnz·n_b flops (×4 complex), and the ops inside the call are kept
+out of their counts: the plain version's on the CPU, the wrapper's
+allocations on the card. The count is the same on either device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -26,12 +36,65 @@ import numpy as np
 import torch
 
 from . import ref
-from .plan import CompactDia, CompactEll, compact_dia, diag_id_of, span_of_dia
+from .plan import (CompactDia, CompactEll, compact_dia, diag_id_of,
+                   ell_operator_bytes, span_of_dia)
 
 #: Max distinct diagonal offsets before plan_dia refuses (the DIA form
 #: stores n_diag * R values; past a few dozen diagonals the gather-free
 #: format stops paying for itself).
 DIA_MAX_DIAGS = 64
+
+#: The op censuses a wrapper reports its calls to (each one's
+#: ``kernel(name, n_bytes, flops)`` and ``quiet()``; ``launch/op_analysis.py``
+#: adds and removes itself).
+censuses: list = []
+
+
+@contextlib.contextmanager
+def kernel_calls(costs):
+    """Report kernel calls to the active censuses and keep the ops run
+    inside the block out of their counts. ``costs()`` gives the calls'
+    ``(name, n_bytes, flops)``, computed quietly."""
+    with contextlib.ExitStack() as quiet:
+        for c in censuses:
+            quiet.enter_context(c.quiet())
+        calls = costs()
+        for c in list(censuses):
+            for name, n_bytes, flops in calls:
+                c.kernel(name, n_bytes, flops)
+        yield
+
+
+def _flops(nnz: int, n_b: int, dtype: torch.dtype) -> float:
+    return 2.0 * nnz * n_b * (4 if dtype.is_complex else 1)
+
+
+def ell_cost(cols, vals, x_rows: int, n_b: int, epilogue: bool,
+             compact: CompactEll | None = None) -> tuple:
+    """``(name, n_bytes, flops)`` of one ELL kernel launch on the block
+    ``cols/vals [R, W]`` against ``x [x_rows, n_b]``: the operator as the
+    kernel reads it (:func:`plan.ell_operator_bytes`), x, with the
+    epilogue w1 and w2, and y."""
+    R = int(cols.shape[0])
+    S = vals.element_size()
+    nnz = (compact.cols.numel() if compact is not None
+           else int((vals != 0).sum()))
+    vec = (x_rows + R * (3 if epilogue else 1)) * n_b * S
+    return ("ell_gather_cheb" if epilogue else "ell_gather",
+            ell_operator_bytes(R, nnz, S) + vec, _flops(nnz, n_b, vals.dtype))
+
+
+def dia_cost(offsets, dvals, x, w1, w2, compact: CompactDia | None = None
+             ) -> tuple:
+    """``(name, n_bytes, flops)`` of one ``cheb_dia`` launch: the compact
+    operator the kernel reads (``CompactDia.bytes_per_row``), x, w1 unless
+    it is x (the filter's step reads one block for both), w2 and y."""
+    cp = compact if compact is not None else compact_dia(
+        dvals, diag_id_of(offsets))
+    R, n_b, S = cp.R, x.shape[1], x.element_size()
+    vecs = x.numel() + (0 if w1.data_ptr() == x.data_ptr() else w1.numel())
+    n_bytes = cp.bytes_per_row * R + (vecs + w2.numel() + R * n_b) * S
+    return "cheb_dia", n_bytes, _flops(cp.nnz, n_b, dvals.dtype)
 
 
 def ell_spmv(cols, vals, x, y0=None, *, compact: CompactEll | None = None,
@@ -45,6 +108,15 @@ def ell_spmv(cols, vals, x, y0=None, *, compact: CompactEll | None = None,
     built here when omitted), the plain version ``cols/vals``; ``slab``
     forces the kernel's slab width (the plain version has none). ``out``
     [R, n_b], when given, receives the result (it may be ``y0``)."""
+    if censuses:
+        with kernel_calls(lambda: [ell_cost(cols, vals, x.shape[0],
+                                            x.shape[1], epilogue is not None,
+                                            compact)]):
+            return _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out)
+    return _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out)
+
+
+def _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out):
     if x.device.type == "cpu":
         acc = y0 if y0 is not None else torch.zeros(
             (cols.shape[0], x.shape[1]), dtype=torch.result_type(vals, x))
@@ -66,6 +138,17 @@ def cheb_dia(offsets, dvals, x, w1, w2, alpha, beta, *,
     reads the compact form of ``dvals`` (a :class:`DiaPlan`'s ``compact``,
     built once; built here when omitted), the plain version ``dvals``.
     ``out`` [R, n_b], when given, receives the result."""
+    if censuses:
+        with kernel_calls(lambda: [dia_cost(offsets, dvals, x, w1, w2,
+                                            compact)]):
+            return _cheb_dia(offsets, dvals, x, w1, w2, alpha, beta,
+                             compact, span, slab, out)
+    return _cheb_dia(offsets, dvals, x, w1, w2, alpha, beta, compact, span,
+                     slab, out)
+
+
+def _cheb_dia(offsets, dvals, x, w1, w2, alpha, beta, compact, span, slab,
+              out):
     if x.device.type == "cpu":
         y = ref.cheb_dia_ref(offsets, dvals, x, w1, w2, alpha, beta)
         return y if out is None else out.copy_(y)

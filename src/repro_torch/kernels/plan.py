@@ -293,8 +293,13 @@ def check_slab(slab, n_b: int) -> int | None:
     return slab
 
 
+def ell_operator_bytes(R: int, nnz: int, S: int) -> int:
+    """Operator bytes one sweep of the ELL kernel reads: the row pointers,
+    an int32 column and a value an entry."""
+    return 4 * (R + 1) + nnz * (4 + S)
+
+
 def ell_bytes_per_row(cp: CompactEll) -> float:
-    """Operator bytes one sweep of the ELL kernel reads per row: the row
-    pointers, an int32 column and a value an entry."""
-    S = cp.vals.element_size()
-    return (4 * (cp.R + 1) + cp.cols.numel() * (4 + S)) / max(cp.R, 1)
+    """:func:`ell_operator_bytes` of ``cp`` per row."""
+    return (ell_operator_bytes(cp.R, cp.cols.numel(), cp.vals.element_size())
+            / max(cp.R, 1))

@@ -7,10 +7,11 @@ entries are complex (``is_complex``, ``S_d``), how far its pattern reaches
 from the diagonal (``reach``), an optional analytic inclusion interval
 (``spectral_bounds_hint``), and ``build_csr`` for instances that fit in host
 memory, and the χ counts of the horizontal layer: ``n_vc`` (distinct
-remote columns of each row block, streamed) and ``n_vm`` (rows of each
-block). The reference's Hubbard overrides ``n_vc`` with a faster exact
-count; the port streams every family (the same numbers). ``est_nnz`` is
-not ported.
+remote columns of each row block, streamed; Hubbard overrides it with
+the reference's exact tensor-product count) and ``n_vm`` (rows of each
+block). ``est_nnz``
+estimates the stored entries without a pattern pass (exact for RoadNet
+and HubNet).
 """
 from __future__ import annotations
 
@@ -98,6 +99,17 @@ class MatrixFamily(abc.ABC):
     def n_vm(self, boundaries: np.ndarray) -> np.ndarray:
         """Local vector entries per block; = block size (Eq. 3 note)."""
         return np.diff(np.asarray(boundaries, dtype=np.int64))
+
+    def est_nnz(self, probe_rows: int = 4096) -> int:
+        """Estimated stored entries of the whole matrix — a deterministic
+        evenly-spaced row probe scaled to D (exact when the probe covers
+        every row). The streaming planner's benchmarks normalize planning
+        time by this without a pattern pass; families with closed-form
+        counts (RoadNet, HubNet) override it exactly."""
+        n = min(self.D, int(probe_rows))
+        rows = np.unique(np.linspace(0, self.D - 1, max(n, 1)).astype(np.int64))
+        r, _ = self.row_cols(rows)
+        return int(round(len(r) * self.D / max(len(rows), 1)))
 
     def spectral_bounds_hint(self) -> tuple[float, float] | None:
         """Optional analytic inclusion interval (else Lanczos computes it)."""

@@ -170,6 +170,12 @@ class HubNet(MatrixFamily):
         return (np.concatenate(out_r), np.concatenate(out_c),
                 np.concatenate(out_v))
 
+    def est_nnz(self, probe_rows: int = 4096) -> int:
+        """Exact closed form: diagonal + end-clipped band + h corridors
+        of 2·m·k entries each (every region is one corridor's source and
+        another's destination)."""
+        return (self.n + 2 * self.w * self.n - self.w * (self.w + 1)
+                + 2 * self.h * self.m * self.k)
 
     def spectral_bounds_hint(self):
         return (0.0, 2.0 * (2 * self.w + 2 * self.k))

@@ -126,6 +126,11 @@ class RoadNet(MatrixFamily):
         return (np.concatenate(out_r), np.concatenate(out_c),
                 np.concatenate(out_v))
 
+    def est_nnz(self, probe_rows: int = 4096) -> int:
+        """Exact closed form: diagonal + end-clipped band + 2·m·k
+        corridor entries (no duplicates by construction)."""
+        return (self.n + 2 * self.w * self.n - self.w * (self.w + 1)
+                + 2 * self.m * self.k)
 
     def spectral_bounds_hint(self):
         return (0.0, 2.0 * (2 * self.w + self.k))

@@ -1036,3 +1036,60 @@ def test_lm_train_exact_resume_on_the_card(card, tmp_path, monkeypatch):
     for a, b in zip(_tree_values(param_tree(full)),
                     _tree_values(param_tree(res)), strict=True):
         assert torch.equal(a, b)
+
+
+def test_checkpoint_restores_bf16_leaves_on_the_card(card, tmp_path):
+    """bfloat16 CUDA leaves written as the reference writes them (their
+    bits under the ``.npy`` descr '<V2', manifest dtype "bfloat16") come
+    back on the card as bfloat16 with the same bits."""
+    import json
+
+    from repro_torch.checkpoint import restore, save
+
+    g = torch.Generator(device=card).manual_seed(4)
+    tree = {"w": torch.randn((257, 33), generator=g, device=card).to(
+        torch.bfloat16),
+            "b": torch.randn((33,), generator=g, device=card,
+                             dtype=torch.float32)}
+    path = save(str(tmp_path), 2, tree)
+    with open(f"{path}/manifest.json") as f:
+        assert [lm["dtype"] for lm in json.load(f)["leaves"]] == \
+            ["float32", "bfloat16"]
+    got, _, _ = restore(str(tmp_path), {k: torch.zeros_like(v)
+                                        for k, v in tree.items()})
+    assert got["w"].is_cuda and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), tree["w"].view(torch.int16))
+    assert torch.equal(got["b"], tree["b"])
+
+
+def test_op_census_of_one_epilogue_launch_is_its_bound(card):
+    """One ``ell_gather_cheb`` launch under the op census is one op with
+    its bound's bytes (the operator as the kernel reads it, x, w1, w2, y)
+    and 2·nnz·n_b flops — the count its plain version gives on the CPU."""
+    from repro_torch.launch.op_analysis import count_ops
+
+    A = RoadNet(n=4000, w=2, m=256, k=4).build_csr()
+    from repro_torch.core.spmv import build_dist_ell
+
+    ell = build_dist_ell(A, 1, dtype="float64", device=card)
+    cols, vals = ell.cols[0], ell.vals[0]
+    cpe = plan.compact_ell(cols, vals)
+    g = torch.Generator(device=card).manual_seed(5)
+    R, nb = cols.shape[0], 24
+    x, w1, w2 = (torch.randn((R, nb), generator=g, device=card,
+                             dtype=torch.float64) for _ in range(3))
+    n0 = build.launches["ell_gather_cheb"]
+    y, c = count_ops(lambda: ops.ell_spmv(cols, vals, x, compact=cpe,
+                                          epilogue=(w1, w2, 0.3, -0.1)))
+    torch.cuda.synchronize()
+    assert build.launches["ell_gather_cheb"] == n0 + 1
+    want = plan.ell_bytes_per_row(cpe) * R + 4 * R * nb * 8
+    k = c.kernels["ell_gather_cheb"]
+    assert c.ops == 1 and k["calls"] == 1
+    assert k["bytes"] == pytest.approx(want, rel=1e-12)
+    assert k["flops"] == 2.0 * cpe.cols.numel() * nb
+    on_cpu = [t.cpu() for t in (cols, vals, x, w1, w2)]
+    y_cpu, c_cpu = count_ops(lambda: ops.ell_spmv(
+        *on_cpu[:3], epilogue=(*on_cpu[3:], 0.3, -0.1)))
+    assert c_cpu.kernels == c.kernels and c_cpu.ops == c.ops
+    assert torch.equal(y.cpu(), y_cpu)
