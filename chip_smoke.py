@@ -30,11 +30,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      n_b = 8 and on the four shard blocks of the HubNet(48000) panel
      4 × 2 solve's commvol operator (with their halo rows) at n_b = 32,
      fp64;
-   * the s-step filter's step-0 blocks: each of the 8 shards' ``[R + G,
-     W_0]`` block of the depth-3 operators of HubNet(48000) and
-     RoadNet(48000) at P = 8 (the two s-step solves' operators), against
-     the extended block ``[R + G, 64]``, through ``ell_gather`` and its
-     epilogue entry, each bit-equal to its plain version in fp64.
+   * the 8-shard solves' blocks, one launch for all 8 row shards (the
+     engines' grouped launch), on HubNet(48000) and RoadNet(48000) at
+     n_b = 64 in fp64: the compressed cyclic split-phase step's local
+     block on the shards' rows and its halo block with the epilogue on
+     the halo buffer (from the local block's accumulator), and the
+     depth-3 s-step filter's step 0 on the extended blocks ``[P, R + G,
+     64]`` (whole, with and without the epilogue, and split: the local
+     block on the strided owned rows, then the rest); each bit-equal to
+     its plain version (``ref.ell_grouped_ref``), to the padded blocks'
+     plain version shard by shard and to 8 launches of one shard each
+     (prepared beforehand), timed beside both, its bound (the epilogue's
+     w1 read once with x where it is x's leading rows) and cuSPARSE's
+     ``A @ x`` over the whole operator.
 
    The DIA step's bound counts the compact operator its kernel reads,
    once (the earlier formula, which counted the dense dvals, is kept
@@ -145,6 +153,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * the same RoadNet solve at 8 row shards (``--n-row 8 --spmv-comm
      compressed --spmv-overlap``: the split-phase cyclic engine), its
      eigenvalues equal to the one-shard solve's to 1e-9;
+   * on every ELL-route solve, ``ell_gather_cheb`` launched once a fused
+     step for all the row shards of each bundle: ``N_col · Σ (degree −
+     1)`` launches;
    * that solve with the s-step filter (``--spmv-sstep 3``): its
      iterations, degrees and eigenvalues equal to the 8-shard solve's bit
      for bit;
@@ -286,9 +297,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
      memory), their per-chip placement on the 16 × 16 mesh;
    * ``examples/torch_quickstart.py`` on the card;
    * each kernel's census bytes for one launch (RoadNet(48000) at
-     n_b = 64 through ``ell_gather`` and its epilogue entry, Hubbard(8,4)'s
-     DIA form through ``cheb_dia``) equal to this script's bound bytes for
-     that launch; every record field finite; each eigen cell's measured ms
+     n_b = 64 through ``ell_gather`` and its epilogue entry, also with
+     w1 = x, Hubbard(8,4)'s DIA form through ``cheb_dia``) equal to this
+     script's bound bytes for that launch; every record field finite; each eigen cell's measured ms
      printed beside its roofline ``t_memory_s`` and their ratio.
 
 The last two lines of standard output are the card's ``nvidia-smi`` name
@@ -469,14 +480,21 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
 
 
 def ell_bound_bytes(cpe, R: int, Rx: int, nb: int, S: int,
-                    epilogue: bool) -> float:
-    """Bytes of an ELL launch's bound: the operator as the kernel reads it
-    (row pointers, an int32 column and a value an entry), x [Rx, nb], with
-    the epilogue w1 and w2 [R, nb], and y [R, nb], each once."""
+                    epilogue: bool, y0: bool = False,
+                    w1_is_x: bool = False) -> float:
+    """Bytes of an ELL launch's bound on ``cpe.P`` shards of ``R`` rows
+    (one for one block): the operator as the kernel reads it (row
+    pointers, an int32 column and a value an entry), each shard's x
+    [Rx, nb], y0 [R, nb] when the launch starts from one, with the
+    epilogue w1 (unless ``w1_is_x``: it is x's leading rows, the same
+    memory, read once) and w2 [R, nb], and y [R, nb], each once."""
     from repro_torch.kernels import plan
 
-    return (plan.ell_bytes_per_row(cpe) * R
-            + (Rx + (3 if epilogue else 1) * R) * nb * S)
+    P = cpe.P
+    blocks = (1 + (1 if y0 else 0)
+              + ((1 if w1_is_x else 2) if epilogue else 0))
+    return (plan.ell_bytes_per_row(cpe) * P * R
+            + P * (Rx + blocks * R) * nb * S)
 
 
 def dia_bound_bytes(cp, nb: int, S: int) -> float:
@@ -870,35 +888,178 @@ def phase_kernels_families(records: list) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_kernels_sstep(records: list) -> None:
-    """The s-step solves' step-0 blocks: each shard's ``[R + G, W_0]``
-    block of the depth-3 operators of HubNet(48000) and RoadNet(48000) at
-    P = 8 against the extended block ``[R + G, n_b]``, through
-    ``ell_gather`` and its epilogue entry (a later group's first step),
-    bit-equal to the plain versions in fp64."""
+def grouped_case(records: list, label: str, cols, vals, x, y0, epilogue,
+                 library) -> None:
+    """One launch of the ELL kernel for all P row shards of the block
+    ``cols/vals [P, R, W]`` (``ell_gather.EllLaunch`` on the shards'
+    stacked form, as the engines launch it) on the views ``x [P, Rx, nb]``
+    and ``y0`` (or None), with ``epilogue = (w1, w2, alpha, beta)`` or
+    None, into a fresh ``[P, R, nb]``: held bit for bit to its plain
+    version (``ref.ell_grouped_ref``), to the padded block's plain version
+    shard by shard (``ref.ell_spmv_acc_ref`` on ``cols/vals[p]``, which
+    does not read the compact form) and to P launches of one shard each
+    (one ``EllLaunch`` a shard, built beforehand as the engines held the
+    shards' compact forms, on contiguous copies of the shards' operands),
+    each timed, beside the bound of the stacked form (w1 counted once with
+    x when it is x's leading rows) and ``library`` (cuSPARSE ``A @ x``
+    over the whole operator). Launches made here are comparisons, outside
+    the main path's counts."""
     import torch
 
-    from repro_torch.core import build_sstep_ell
+    from repro_torch.kernels import plan, ref
+    from repro_torch.kernels.ell_gather import EllLaunch
+
+    P, R, _ = cols.shape
+    Rx, nb = x.shape[1], x.shape[2]
+    S = x.element_size()
+    name = "ell_gather" if epilogue is None else "ell_gather_cheb"
+    cp = plan.compact_ell_grouped(cols, vals)  # built once, as _block does
+    launch = EllLaunch(cp)
+    out, outs = x.new_empty((P, R, nb)), x.new_empty((P, R, nb))
+    shards = [(EllLaunch(plan.compact_ell(cols[p], vals[p])),
+               x[p].contiguous()[None],
+               None if y0 is None else y0[p].contiguous()[None],
+               None if epilogue is None else (
+                   epilogue[0][p].contiguous()[None],
+                   epilogue[1][p].contiguous()[None], epilogue[2],
+                   epilogue[3]))
+              for p in range(P)]
+
+    def per_shard():  # into outs[p], each a contiguous [R, nb]
+        for p, (lp, xp, y0p, epi) in enumerate(shards):
+            lp(xp, y0p, out=outs[p:p + 1], epilogue=epi)
+
+    def padded():  # the padded blocks, shard by shard
+        ys = []
+        for p in range(P):
+            acc = (y0[p].clone() if y0 is not None else
+                   torch.zeros((R, nb), dtype=x.dtype, device=x.device))
+            y = ref.ell_spmv_acc_ref(acc, cols[p], vals[p], x[p])
+            if epilogue is not None:
+                y = ref.cheb_epilogue(y, epilogue[0][p], epilogue[1][p],
+                                      epilogue[2], epilogue[3])
+            ys.append(y)
+        return torch.stack(ys)
+
+    per_shard()
+    want = launch(x, y0, out=out, epilogue=epilogue).clone()
+    pad = padded()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(outs, want))
+    same_pad = bool(torch.equal(pad, want))
+    del pad
+    per_ms = time_ms(per_shard, 10)
+    w1_is_x = epilogue is not None and (
+        epilogue[0].data_ptr() == x.data_ptr()
+        and epilogue[0].stride() == x.stride())
+    n_bytes = ell_bound_bytes(cp, R, Rx, nb, S, epilogue is not None,
+                              y0 is not None, w1_is_x)
+    nnz = cp.cols.numel()
+    flops = 2.0 * nnz * nb + (4.0 * P * R * nb if epilogue else 0.0)
+    rec = compare(
+        name, f"{label} n_b={nb} grouped P={P}", "float64",
+        lambda: launch(x, y0, out=out, epilogue=epilogue),
+        lambda: ref.ell_grouped_ref(cp, x, y0, epilogue), n_bytes, flops,
+        library=library, bitwise_dtypes=("float64",),
+        extra=dict(per_shard_ms=per_ms, launches_before=P,
+                   tile_max=float(cp.tile_max), max_row=float(cp.max_row)))
+    rec["bitwise_to_per_shard"] = same
+    rec["bitwise_to_padded"] = same_pad
+    rec["w1_is_x"] = w1_is_x
+    rec["x_shard_stride"] = x.stride(0)
+    records.append(rec)
+    log(f"[kernels] {name} {label} grouped P={P}: bitwise to {P} per-shard "
+        f"launches {same}, to the padded blocks' plain version {same_pad}; "
+        f"{rec['ms']:.4f} ms against {per_ms:.4f} ms of the {P} launches "
+        f"(x shard stride {x.stride(0)}, contiguous {x.is_contiguous()}, "
+        f"w1 is x {w1_is_x})")
+    if not same:
+        raise SmokeFailure(f"{name} {label}: the grouped launch differs from "
+                           f"the {P} per-shard launches")
+    if not same_pad:
+        raise SmokeFailure(f"{name} {label}: the grouped launch differs from "
+                           "the padded blocks' plain version")
+    del shards, out, outs, want
+    torch.cuda.empty_cache()
+
+
+def phase_kernels_grouped(records: list) -> None:
+    """The 8-shard solves' blocks, one launch for all shards, at their own
+    shape (n_b = 64, fp64), on RoadNet(48000) and HubNet(48000): the
+    split-phase step of the compressed cyclic engine (the local block on
+    the shards' rows, then the halo block with the epilogue on the halo
+    buffer, from the local block's accumulator) and the depth-3 s-step
+    filter's step 0 (the whole ``[R + G, W_0]`` block on the extended
+    blocks with and without the epilogue, and its split: the local block
+    on the owned rows ``w1e[:, :R]`` into ``y[:, :R]``, strided views of
+    ``[P, R + G, nb]``, then the rest on the whole block with the
+    epilogue), each against the plain version, the per-shard launches and
+    cuSPARSE ``A @ x`` over the whole operator."""
+    import torch
+
+    from repro_torch.core import build_dist_ell, build_sstep_ell
+    from repro_torch.kernels import plan
+    from repro_torch.kernels.ell_gather import EllLaunch
     from repro_torch.matrices import HubNet, RoadNet
 
     gen = torch.Generator(device="cuda").manual_seed(2029)
+    a, b = 0.013, -0.4
     for fam, params, label, nb in ((HubNet, HUBNET, "HubNet", HN_N_SEARCH),
                                    (RoadNet, ROADNET, "RoadNet",
                                     RN_N_SEARCH)):
         t0 = time.perf_counter()
         mat = fam(**params)
-        sell = build_sstep_ell(mat, SSTEP_P, SSTEP, dtype="float64",
+        P = SSTEP_P
+        ell = build_dist_ell(mat, P, dtype="float64", split_halo=True,
+                             device="cuda")
+        nplan = ell.neighbor_plan(split_halo=True, schedule="cyclic")
+        cl, vl, _, vh = ell.split()
+        sell = build_sstep_ell(mat, P, SSTEP, dtype="float64",
+                               d_pad=ell.D_pad, split_halo=True,
                                device="cuda")
-        cols, vals = sell.steps[0]
-        log(f"[kernels] {mat.describe()} P={SSTEP_P} s={SSTEP}: R={sell.R} "
-            f"G={sell.G} L={sell.L} widths "
-            f"{[int(c.shape[2]) for c, _ in sell.steps]} ghost_cum "
-            f"{sell.ghost_cum}; built in {time.perf_counter() - t0:.2f} s")
-        for p in range(SSTEP_P):
-            ell_case(records, f"{label} P={SSTEP_P} s={SSTEP} step 0 shard "
-                     f"{p}", cols[p], vals[p], nb, "float64", gen, cheb=True,
-                     Rx=sell.R + sell.G, bitwise=("float64",))
-        del sell, cols, vals
+        R, G, H = ell.R, sell.G, nplan.H
+        log(f"[kernels] {mat.describe()} P={P}: R={R} H={H} (cyclic) "
+            f"W_local={cl.shape[2]} W_halo={vh.shape[2]}; s={SSTEP}: G={G} "
+            f"widths {[int(c.shape[2]) for c, _ in sell.steps]}; built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        # cuSPARSE over the whole operator (its one-shard block), x [D, nb]
+        one = build_dist_ell(mat, 1, dtype="float64", device="cuda")
+        A = csr_library(one.cols[0], one.vals[0])
+        xa = torch.randn((one.D_pad, nb), generator=gen, device="cuda",
+                         dtype=torch.float64)
+        del one
+
+        def lib():
+            return A @ xa
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.float64)
+
+        # the split step: x = w1 the shards' rows, the halo [P, H, nb]
+        xs, w2, halo = randn(P, R, nb), randn(P, R, nb), randn(P, H, nb)
+        acc = xs.new_empty((P, R, nb))
+        grouped_case(records, f"{label} split local", cl, vl, xs, None, None,
+                     lib)
+        EllLaunch(plan.compact_ell_grouped(cl, vl))(xs, out=acc)
+        grouped_case(records, f"{label} split halo", nplan.cols_halo_nbr, vh,
+                     halo, acc, (xs, w2, a, b), lib)
+        del xs, w2, halo, acc
+        # the s-step filter's step 0 on the extended blocks [P, R + G, nb]
+        cols0, vals0 = sell.steps[0]
+        w1e, w2e = randn(P, R + G, nb), randn(P, R + G, nb)
+        grouped_case(records, f"{label} s={SSTEP} step 0", cols0, vals0, w1e,
+                     None, None, lib)
+        grouped_case(records, f"{label} s={SSTEP} step 0", cols0, vals0, w1e,
+                     None, (w1e, w2e, a, b), lib)
+        lc, lv, pc, pv = sell.split()
+        y = w1e.new_zeros((P, R + G, nb))
+        grouped_case(records, f"{label} s={SSTEP} step 0 local", lc, lv,
+                     w1e[:, :R], None, None, lib)
+        EllLaunch(plan.compact_ell_grouped(lc, lv))(w1e[:, :R], out=y[:, :R])
+        grouped_case(records, f"{label} s={SSTEP} step 0 post", pc, pv, w1e,
+                     y, (w1e, w2e, a, b), lib)
+        del A, xa, w1e, w2e, y, ell, sell, nplan
         torch.cuda.empty_cache()
 
 
@@ -1730,6 +1891,20 @@ def run_solve(label: str, family: str, params: dict, A, *, n_search: int,
         if not must and launches[k] != 0:
             raise SmokeFailure(f"kernel {k} launched {launches[k]} times on "
                                f"the {label} path, which should not take it")
+    if launched.get("ell_gather_cheb"):
+        # each fused step of a bundle's filter is one epilogue launch for
+        # all its row shards: N_col launches a step
+        ex = res.exchange
+        n_col = ex["P"] // (ex["panel"]["P"] if ex["panel"] else ex["P"])
+        want = n_col * sum(d - 1 for d in degrees)
+        log(f"[solve {label}] ell_gather_cheb launches "
+            f"{launches['ell_gather_cheb']}, {n_col} bundle(s) × "
+            f"{want // max(n_col, 1)} fused steps")
+        if launches["ell_gather_cheb"] != want:
+            raise SmokeFailure(f"{label}: ell_gather_cheb launched "
+                               f"{launches['ell_gather_cheb']} times, not one "
+                               f"a fused step of each of {n_col} bundles "
+                               f"({want})")
     X, theta = res.eigenvectors, res.eigenvalues
     if not (np.isfinite(theta).all() and np.isfinite(X).all()
             and X.shape == (A.shape[0], len(theta))
@@ -2895,8 +3070,8 @@ def census_launches() -> list:
     """One launch of each kernel under the op census, its counted bytes
     against this script's bound bytes for that launch (``ell_case``,
     ``dia_case``): RoadNet(48000) at n_b = 64 through ``ell_gather`` and
-    its epilogue entry, Hubbard(8,4)'s DIA form through ``cheb_dia``, fp64.
-    These launches are comparisons, outside the main path's counts."""
+    its epilogue entry (w1 a block of its own, and w1 = x), Hubbard(8,4)'s
+    DIA form through ``cheb_dia``, fp64. These launches are comparisons, outside the main path's counts."""
     import torch
 
     from repro_torch.core.spmv import build_dist_ell
@@ -2920,27 +3095,32 @@ def census_launches() -> list:
     xd, w2d = (torch.randn((hub.R, nb), generator=gen, device="cuda",
                            dtype=torch.float64) for _ in range(2))
     cases = (
-        ("ell_gather", lambda: ops.ell_spmv(cols, vals, x, compact=cpe),
+        ("ell_gather", "", lambda: ops.ell_spmv(cols, vals, x, compact=cpe),
          ell_bound_bytes(cpe, R, R, nb, S, epilogue=False)),
-        ("ell_gather_cheb", lambda: ops.ell_spmv(
+        ("ell_gather_cheb", "", lambda: ops.ell_spmv(
             cols, vals, x, compact=cpe, epilogue=(w1, w2, 0.013, -0.4)),
          ell_bound_bytes(cpe, R, R, nb, S, epilogue=True)),
-        ("cheb_dia", lambda: ops.cheb_dia(
+        ("ell_gather_cheb", " (w1 = x)", lambda: ops.ell_spmv(
+            cols, vals, x, compact=cpe, epilogue=(x, w2, 0.013, -0.4)),
+         ell_bound_bytes(cpe, R, R, nb, S, epilogue=True, w1_is_x=True)),
+        ("cheb_dia", "", lambda: ops.cheb_dia(
             dia.offsets, dia.dvals, xd, xd, w2d, 0.013, -0.4, compact=cp,
             span=span), dia_bound_bytes(cp, nb, S)),
     )
-    for name, launch, want in cases:
+    for name, note, launch, want in cases:
         _, c = count_ops(launch)
         torch.cuda.synchronize()
         got = c.kernels.get(name, {})
-        rec = dict(name=name, calls=got.get("calls"), census_bytes=got.get(
-            "bytes"), bound_bytes=want, ops=c.ops)
-        log(f"[dryrun] census of one {name} launch: {rec['census_bytes']} B "
-            f"against the bound's {want} B ({c.ops} op)")
+        rec = dict(name=name + note, calls=got.get("calls"),
+                   census_bytes=got.get("bytes"), bound_bytes=want, ops=c.ops)
+        log(f"[dryrun] census of one {name}{note} launch: "
+            f"{rec['census_bytes']} B against the bound's {want} B "
+            f"({c.ops} op)")
         if got.get("calls") != 1 or c.ops != 1 or not math.isclose(
                 got["bytes"], want, rel_tol=1e-12):
-            raise SmokeFailure(f"the census of one {name} launch ({got}, "
-                               f"{c.ops} ops) is not its bound's {want} B")
+            raise SmokeFailure(f"the census of one {name}{note} launch "
+                               f"({got}, {c.ops} ops) is not its bound's "
+                               f"{want} B")
         out.append(rec)
     return out
 
@@ -3082,7 +3262,7 @@ def run(args) -> int:
     records: list = []
     phase_kernels(records)
     phase_kernels_families(records)
-    phase_kernels_sstep(records)
+    phase_kernels_grouped(records)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
     if args.kernels_only:
         if args.out:

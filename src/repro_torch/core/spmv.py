@@ -39,11 +39,13 @@ reference's ``shard_map`` bodies (``spmv.py:781-1187``) over the port's
   ``pipeline`` (round r's completed rows contract against the prefix of
   the receive buffer while later rounds are in flight).
 
-Each shard's blocks go through ``ops.ell_spmv`` (the CUDA ELL kernel on
-the card, its plain version on the CPU; with ``use_kernel=False`` the
-plain version everywhere) with the accumulator threaded as ``y0``, in
-the reference's block order, so within every row the products are added
-in the same order in every engine and all eight agree bit for bit. A
+Each block goes through one launch of the CUDA ELL kernel for all P
+shards on the card (``kernels/ell_gather.py::EllLaunch``, on the shards'
+stacked padding-free form), its plain version for all of them on the CPU
+(with ``use_kernel=False`` the plain version everywhere), with the
+accumulator threaded as ``y0``, in the reference's block order, so within
+every row the products are added in the same order in every engine and
+all eight agree bit for bit. A
 fused step hands its epilogue ``2a·y + 2b·w1 − w2`` to the last block's
 launch (the ``ell_gather_cheb`` entry); a comm-free operator (P = 1 or
 L = 0) runs the whole step per shard in the DIA kernel when
@@ -53,8 +55,8 @@ The s-step filter (:func:`build_sstep_ell`, :func:`make_sstep_cheb`; the
 reference's ``spmv.py:1195-1791``) extends each shard's block by its
 depth-s ghost zone, ``[R + G, W_i]`` for step i of a group: one exchange
 ships the ghosts (the previous group's last two steps, ``[w1 | w2]``),
-then s steps run on the extended blocks, each one kernel launch per
-shard, each row's products in its home shard's slot order, so a filter
+then s steps run on the extended blocks, each one kernel launch for all
+shards, each row's products in its home shard's slot order, so a filter
 runs ⌈n/s⌉ exchanges and returns the s = 1 filter's bits.
 """
 from __future__ import annotations
@@ -66,6 +68,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops, plan, ref
+from ..kernels.ell_gather import EllLaunch
 from ..kernels.plan import span_of
 from ..matrices.families import MatrixFamily
 from ..matrices.matfree import collect_row_entries
@@ -521,11 +524,12 @@ def build_dist_ell(matrix: MatrixFamily | CSR, P_row: int = 1, dtype=None,
 @dataclasses.dataclass
 class _Block:
     """One ELL block of every shard (``cols/vals [P, R, W]``) and, for the
-    CUDA kernel, each shard's padding-free form, built once."""
+    CUDA kernel, its launch over all P shards (``ell_gather.EllLaunch`` on
+    the shards' stacked padding-free form), built once."""
 
     cols: torch.Tensor
     vals: torch.Tensor
-    compact: list | None
+    launch: object | None
 
     @property
     def W(self) -> int:
@@ -533,19 +537,20 @@ class _Block:
 
 
 def _block(cols, vals, use_kernel: bool) -> _Block:
-    compact = None
+    launch = None
     if use_kernel and vals.device.type == "cuda":
-        compact = [plan.compact_ell(cols[p], vals[p])
-                   for p in range(cols.shape[0])]
-    return _Block(cols, vals, compact)
+        launch = EllLaunch(plan.compact_ell_grouped(cols, vals))
+    return _Block(cols, vals, launch)
 
 
-def _contract(blk: _Block, p: int, x, y0, epilogue, out):
-    """``y0 + A_p·x`` for shard p's part of ``blk`` (its epilogue when
-    given) in the kernel (``ops.ell_spmv``), into ``out``."""
-    return ops.ell_spmv(blk.cols[p], blk.vals[p], x, y0,
-                        compact=None if blk.compact is None
-                        else blk.compact[p], epilogue=epilogue, out=out)
+def _contract(blk: _Block, x, y0, epilogue, out):
+    """``y0 + A_p·x_p`` of every shard's part of ``blk`` (its epilogue when
+    given) in one kernel launch, into ``out``: ``x [P, Rx, n_b]``, ``y0``,
+    ``out`` and the epilogue's ``w1, w2 [P, R, n_b]``, views with any
+    shard stride. An op census counts it as one op (``ops.ell_census``)."""
+    with ops.ell_census(blk.cols, blk.vals, x, y0, epilogue,
+                        blk.launch.compact):
+        return blk.launch(x, y0, out=out, epilogue=epilogue)
 
 
 def _contract_plain(blk: _Block, x, y0, epilogue, as_kernel: bool = False):
@@ -557,13 +562,10 @@ def _contract_plain(blk: _Block, x, y0, epilogue, as_kernel: bool = False):
     stacked rows, as in ``ref.ell_spmv_acc_ref``: indexing with two index
     tensors runs threaded even at n_b = 1, and stalls when the CPU's
     cores are oversubscribed. With ``as_kernel`` (the kernels on, on the
-    CPU) it stands for the kernel's launch per shard, and an op census
-    counts those launches (``ops.kernel_calls``)."""
+    CPU) it stands for the kernel's one launch over the P shards, and an
+    op census counts it as that launch (``ops.ell_census``)."""
     if as_kernel and ops.censuses:
-        with ops.kernel_calls(lambda: [
-                ops.ell_cost(blk.cols[p], blk.vals[p], x.shape[1],
-                             x.shape[2], epilogue is not None)
-                for p in range(blk.cols.shape[0])]):
+        with ops.ell_census(blk.cols, blk.vals, x, y0, epilogue):
             return _contract_plain(blk, x, y0, epilogue)
     P, R, W = blk.cols.shape
     Rx, nb = x.shape[1], x.shape[2]
@@ -673,9 +675,9 @@ class _Engine:
         threaded through them; the last block that holds entries carries
         the epilogue (an empty block adds nothing, so this is the same
         function as a launch of the empty block with it). On the card
-        with ``use_kernel`` each block is one kernel launch per shard,
-        writing into the shard's rows of the result; otherwise the plain
-        version contracts every shard at once."""
+        with ``use_kernel`` each block is one kernel launch for all P
+        shards, each writing into its rows of the result; otherwise the
+        plain version contracts every shard at once."""
         g, ell = self.group, self.ell
         P, R, nb = ell.P, ell.R, x.shape[1]
         if x.shape[0] != P * R:
@@ -701,16 +703,13 @@ class _Engine:
             if not kernel:
                 acc = _contract_plain(blk, src, acc, e, self.use_kernel)
             else:
-                for p in range(P):
-                    ep = None if e is None else (e[0][p], e[1][p], e[2], e[3])
-                    _contract(blk, p, src[p], out[p] if started else None,
-                              ep, out[p])
+                _contract(blk, src, out if started else None, e, out)
                 started = True
             if g.trace is not None:
                 g.contraction(label, reads=(src, prior) + (
                     (e[0], e[1]) if e is not None else ()),
                     writes=(out if kernel else acc,),
-                    launches=P if kernel else 0)
+                    launches=1 if kernel else 0)
 
         def result():
             return (out if kernel else acc).view(P * R, nb)
@@ -809,12 +808,12 @@ def make_spmv(ell: DistEll, *, group: ShardGroup | None = None,
     the operator's device, through the engine that ``overlap``, ``comm``
     and ``schedule`` (and, for the compressed split-phase engine,
     ``pipeline``) name; ``group`` (built when omitted) counts the bytes
-    each exchange moves. ``use_kernel`` sends every block through
-    ``ops.ell_spmv`` (the CUDA kernel for CUDA tensors, reading the
-    padding-free forms built here, once); otherwise the plain version
-    runs. All engines give the same result bit for bit. The closure
-    carries ``spmv.exchange(x)`` (the halo exchange alone),
-    ``spmv.kind``, the engine's name, and ``spmv.group``."""
+    each exchange moves. ``use_kernel`` sends every block of CUDA tensors
+    through one launch of the CUDA kernel for all P shards (reading the
+    stacked padding-free forms built here, once); otherwise, and on the
+    CPU, the plain version runs. All engines give the same result bit
+    for bit. The closure carries ``spmv.exchange(x)`` (the halo exchange
+    alone), ``spmv.kind``, the engine's name, and ``spmv.group``."""
     eng = _engine(ell, group, use_kernel, overlap, comm, schedule, pipeline)
 
     def spmv(x):
@@ -1240,7 +1239,7 @@ class _SstepGroup:
     up to s recurrence steps on the extended blocks ``[P, R+G, n_b]``.
 
     The blocks of every step (and, with ``overlap``, step 0's split) are
-    built once, with their compact forms for the kernel. The first group
+    built once, with their kernel launches. The first group
     of a filter ships ``V`` (width n_b); a later one ships ``[w1 | w2]``
     (width 2·n_b) in the same collective. With ``overlap`` the exchange
     runs on the group's side stream while step 0's local prefix
@@ -1305,22 +1304,17 @@ class _SstepGroup:
                   label: str = "step"):
         """``y0 + A·x`` of every shard's part of ``blk`` (``x [P, Rx, n_b]``,
         ``y0`` and the epilogue's blocks ``[P, rows, n_b]``), one kernel
-        launch per shard into ``out``, or the plain version at once;
-        ``label`` names the phase in the group's trace."""
+        launch for all P shards into ``out``, or the plain version at
+        once; ``label`` names the phase in the group's trace."""
         if not kernel:
             out = _contract_plain(blk, x, y0, epilogue, self.use_kernel)
         else:
-            for p in range(self.sell.P):
-                ep = (None if epilogue is None else
-                      (epilogue[0][p], epilogue[1][p], epilogue[2],
-                       epilogue[3]))
-                _contract(blk, p, x[p], None if y0 is None else y0[p], ep,
-                          out[p])
+            _contract(blk, x, y0, epilogue, out)
         if self.group.trace is not None:
             self.group.contraction(
                 label, reads=(x, y0) + (() if epilogue is None
                                         else (epilogue[0], epilogue[1])),
-                writes=(out,), launches=self.sell.P if kernel else 0)
+                writes=(out,), launches=1 if kernel else 0)
         return out
 
     def __call__(self, n_steps: int, first: bool, carry, coeffs, emit):
@@ -1432,8 +1426,8 @@ def make_sstep_cheb(sell: SstepEll, *, group: ShardGroup | None = None,
     engine ``comm``/``schedule``/``overlap`` names, over ``group`` (built
     when omitted; it counts each exchange's bytes and calls). With
     ``use_kernel`` every step of every group is one launch of the CUDA
-    ELL kernel per shard (its epilogue entry after the filter's first
-    step); otherwise the plain version runs. The result equals
+    ELL kernel for all shards (its epilogue entry after the filter's
+    first step); otherwise the plain version runs. The result equals
     :func:`~repro_torch.core.chebyshev.chebyshev_filter` through the
     s = 1 engine with the same fused step bit for bit. ``apply.kind``
     names the engine (``"...+s3"``), ``apply.group`` the shard group."""

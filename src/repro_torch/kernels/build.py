@@ -43,16 +43,18 @@ _I64 = ctypes.c_longlong
 _F64 = ctypes.c_double
 _INT = ctypes.c_int
 _ELL_ARGS = [_VP, _VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I64,
-             _VP]
+             _I64, _I64, _I64, _I64, _VP]
 _ELL_CHEB_ARGS = [_VP, _VP, _VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP,
-                  _I64, _I64, _I64, _F64, _F64, _VP]
+                  _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _F64,
+                  _F64, _VP]
 _DIA_ARGS = [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _INT, _I64, _I64,
              _I64, _VP, _VP, _VP, _VP, _I64, _I64, _I64, _I64, _F64, _F64, _VP]
 _SIGNATURES = {
-    # rowptr, cols, vals, tile_rows, tile_max, max_row, x, y0, y, R, nb, c,
-    # stream
+    # rowptr, cols, vals, tile_rows, tile_max, max_row, x, y0, y, P, R, nb,
+    # c, the shard strides sx, sy0, sy, stream
     **{f"ell_gather_{t}": _ELL_ARGS for t in ("f64", "f32", "c128", "c64")},
-    # the same, then x, y0, w1, w2, y, R, nb, c, alpha, beta, stream
+    # the same, then x, y0, w1, w2, y, P, R, nb, c, sx, sy0, sw1, sw2, sy,
+    # alpha, beta, stream
     **{f"ell_gather_cheb_{t}": _ELL_CHEB_ARGS
        for t in ("f64", "f32", "c128", "c64")},
     # offsets, n_diag, rowptr, ids, vals, vidx, table, n_table, diag,

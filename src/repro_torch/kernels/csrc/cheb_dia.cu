@@ -89,6 +89,8 @@ template <typename T, int VEC, bool TABLE>
 struct DiaOp {
   static constexpr int kTable = 256;  // TABLE_MAX of kernels/plan.py
   static constexpr int kHeader = kMaxDiags * sizeof(int) + kTable * sizeof(T);
+  static constexpr long long kOpBytes = kDiaOpBytes;
+  static constexpr bool kShards = false;  // one block a launch
   DiaOffsets offs;
   const int* rowptr;
   const uint8_t* ids;
@@ -141,11 +143,13 @@ struct DiaOp {
     v.diag_id = diag_id;
     return v;
   }
-  __device__ void start(T* acc, long long, bool) const {
+  __device__ void start(T* acc, long long, long long, bool) const {
 #pragma unroll
     for (int w = 0; w < VEC; ++w) acc[w] = T(0);
   }
-  __device__ void finish(const T* acc, T* y, long long e, bool in) const {
+  // one shard (p = 0)
+  __device__ void finish(const T* acc, T* y, long long, long long e,
+                         bool in) const {
     if (!in) return;
     T a[VEC], b[VEC], out[VEC];
     VecIO<T, VEC>::ld(w1 + e, a);
@@ -190,7 +194,7 @@ static cudaError_t sweep_dia(const SweepPlan& p, const DiaArgs& a, const T* x,
       break;
   }
   // a tile may hold fewer rows than the CTA's threads cover in one pass
-  const Sweep sw = make_sweep(R, nb, c, p, (int)rows,
+  const Sweep sw = make_sweep(1, R, nb, c, 0, 0, p, (int)rows,
                               rp_cap + ids_cap + vidx_cap + vals_cap);
   const DiaOp<T, VEC, TABLE> op{a.offs, a.rowptr, a.ids,
                                 static_cast<const T*>(a.vals), a.vidx,

@@ -5,9 +5,11 @@
 //
 // The slab sweep computes y[:, slab] = y0 + A·x[:, slab] (or an epilogue
 // of the sum) for one column slab of width c at a time on row-major
-// blocks. One CTA takes a tile of rows of one slab, and the tiles are
-// numbered slab-major (every row tile of slab 0, then slab 1, ...), so the
-// CTAs in flight hold a narrow band of rows of one slab, and the x rows
+// blocks, for P row shards of R rows at once (a block of every shard in
+// one launch; P = 1 is one block). One CTA takes a tile of rows of one
+// shard and one slab, and the tiles are numbered slab-major (every row
+// tile of every shard in slab 0, then slab 1, ...), so the CTAs in flight
+// hold a narrow band of rows of one slab, and the x rows
 // that the operator's far entries (Hubbard(12,6)'s up-spin hops, up to
 // ±232,848 rows) still have to read stay in L2. The streams read or
 // written once (y0, w2, y) carry streaming hints. (An L2 evict_last
@@ -39,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro_torch {
 
@@ -262,14 +266,19 @@ inline long long staged_capacity(long long n) {
 
 // ----------------------------------------------------------- the sweep --
 
-// Geometry of one launch of the sweep: an [R, nb] output, row-major, in
-// slabs of c columns and tiles of tile_rows rows.
+// Geometry of one launch of the sweep: P row shards of an [R, nb] output,
+// row-major, in slabs of c columns and tiles of tile_rows rows. Shard p's
+// rows of x and y start p·sx and p·sy elements past their bases (the
+// operands' own shard strides: a block of every shard may be a strided
+// view of a larger buffer), and its operator rows are p·R .. p·R + R − 1.
 struct Sweep {
-  long long R;      // rows of y (and of the operator)
+  long long P;      // row shards
+  long long R;      // rows of y (and of the operator) per shard
   long long nb;     // columns of x and y
   long long c;      // slab width
-  long long n_rt;   // row tiles per slab
-  long long n_tiles;  // n_rt · slabs
+  long long n_rt;   // row tiles per shard and slab
+  long long n_tiles;  // n_rt · P · slabs
+  long long sx, sy;   // shard strides of x and y, in elements
   int tile_rows;    // rows per tile (one CTA's rows)
   int lanes;        // threads per row
   long long op_bytes;    // shared bytes of the staged operator rows
@@ -293,15 +302,19 @@ constexpr int min_blocks(int nv) { return nv == 4 ? 3 : 4; }
 
 // The operator policy Op provides:
 //   static constexpr int kHeader;     shared bytes before the staged rows
+//   static constexpr long long kOpBytes;  most shared bytes of the rows
+//   static constexpr bool kShards;    takes P > 1 shards (else P = 1)
 //   void init(unsigned char* smem);   fill the header (before the sync)
-//   void stage(buf, r0, rows);        issue the cp.async of a tile's rows
-//   View view(buf, smem, r0);         the staged tile, after the wait
+//   void stage(buf, g0, rows);        issue the cp.async of a tile's rows
+//   View view(buf, smem, g0);         the staged tile, after the wait
 //   View::row(i, e0, e1)              entries [e0, e1) of the tile's row i
-//   View::entry(e, r, col, v) -> bool the entry's column and value, false
+//   View::entry(e, g, col, v) -> bool the entry's column and value, false
 //                                     to skip it (not stored / masked)
-//   void start(acc, e, in)            the accumulator's first value
-//   void finish(acc, y, e, in)        the epilogue and the store
-// for the VEC-wide vector at element offset e of y (and y0, w1, w2), in
+//   void start(acc, p, e, in)         the accumulator's first value
+//   void finish(acc, y, p, e, in)     the epilogue and the store
+// with g0, g operator rows (shard p's row r is p·R + r), for the VEC-wide
+// vector at element offset e of shard p's rows of y (and y0, w1, w2,
+// which the op offsets by their own shard strides; y comes offset), in
 // the slab when `in`. One CTA a tile, the tiles in slab-major order.
 template <typename T, int VEC, int NV, class Op>
 __global__ void __launch_bounds__(kThreads, min_blocks(NV))
@@ -313,12 +326,27 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
   // registers), else 4 vectors a lane
   constexpr int U =
       VEC == 1 && NV == 1 ? (sizeof(T) > 8 ? 4 : 8) : 4 / NV;
-  const long long slab = blockIdx.x / sw.n_rt;
-  const long long r0 = (blockIdx.x % sw.n_rt) * sw.tile_rows;
+  // tile t of shard p in slab `slab`; rows r0 .. r1 − 1 of the shard
+  // (an op of one block, Op::kShards false, is shard 0 at compile time)
+  long long slab, p = 0, t = blockIdx.x;
+  if constexpr (Op::kShards) {
+    const long long per_slab = sw.P * sw.n_rt;
+    slab = blockIdx.x / per_slab;
+    t = blockIdx.x - slab * per_slab;
+    p = t / sw.n_rt;
+    t -= p * sw.n_rt;
+    x += p * sw.sx;
+    y += p * sw.sy;
+  } else {
+    slab = blockIdx.x / sw.n_rt;
+    t = blockIdx.x % sw.n_rt;
+  }
+  const long long r0 = t * sw.tile_rows;
   const long long r1 = r0 + sw.tile_rows < sw.R ? r0 + sw.tile_rows : sw.R;
+  const long long g0 = p * sw.R + r0;  // the operator row of r0
   unsigned char* const opbuf = smem + Op::kHeader;
   op.init(smem);
-  op.stage(opbuf, r0, (int)(r1 - r0));
+  op.stage(opbuf, g0, (int)(r1 - r0));
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -326,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
   const int L = sw.lanes;
   const int lane = threadIdx.x % L;
   const long long step = (long long)L * VEC * NV;
-  const auto v = op.view(opbuf, smem, r0);
+  const auto v = op.view(opbuf, smem, g0);
   const long long jb = slab * sw.c;
   const long long je = jb + sw.c < sw.nb ? jb + sw.c : sw.nb;
   for (long long r = r0 + threadIdx.x / L; r < r1; r += blockDim.x / L) {
@@ -337,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
         const long long jj = j + q * (long long)L * VEC;
-        op.start(acc[q], r * sw.nb + jj, jj < je);
+        op.start(acc[q], p, r * sw.nb + jj, jj < je);
       }
       for (int e = e0; e < e1; e += U) {
         long long col[U];
@@ -347,7 +375,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
         for (int u = 0; u < U; ++u) {
           col[u] = 0;
           val[u] = T(0);
-          ok[u] = e + u < e1 && v.entry(e + u, r, col[u], val[u]);
+          ok[u] = e + u < e1 &&
+                  v.entry(e + u, g0 + (r - r0), col[u], val[u]);
         }
         T xv[U][NV][VEC];
 #pragma unroll
@@ -375,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(NV))
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
         const long long jj = j + q * (long long)L * VEC;
-        op.finish(acc[q], y, r * sw.nb + jj, jj < je);
+        op.finish(acc[q], y, p, r * sw.nb + jj, jj < je);
       }
     }
   }
@@ -395,12 +424,12 @@ inline int pow2_ceil(long long n) {
 }
 
 // 16-byte vectors when every row segment of the slab is 16-byte aligned
-// (`aligned`: all block pointers are, and nb and c are multiples of the
-// vector), else scalars; half as many lanes as the slab has vectors (up
-// to 16), so that each lane decodes an entry once for two vectors (at
-// c = 32 fp64 this took the step from 8.8 to 7.5 ms against one vector
-// or four a lane; scripts/torch_kernel_ab.py, PERF.md); each lane up to
-// 4 vectors a pass.
+// (`aligned`: all block pointers and shard strides are, and nb and c are
+// multiples of the vector), else scalars; half as many lanes as the slab
+// has vectors (up to 16), so that each lane decodes an entry once for two
+// vectors (at c = 32 fp64 this took the step from 8.8 to 7.5 ms against
+// one vector or four a lane; scripts/torch_kernel_ab.py, PERF.md); each
+// lane up to 4 vectors a pass.
 template <typename T>
 inline SweepPlan plan_sweep(long long nb, long long c, bool aligned) {
   const int vmax = 16 / (int)sizeof(T);
@@ -418,32 +447,56 @@ inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-inline Sweep make_sweep(long long R, long long nb, long long c,
-                        const SweepPlan& p, int rows, long long op_bytes) {
+// A shard stride of elements of S bytes keeps 16-byte alignment.
+inline bool aligned16(long long stride, long long S) {
+  return (stride * S) % 16 == 0;
+}
+
+// P shards of R rows, shard strides sx (x) and sy (y) in elements.
+inline Sweep make_sweep(long long P, long long R, long long nb, long long c,
+                        long long sx, long long sy, const SweepPlan& p,
+                        int rows, long long op_bytes) {
   Sweep sw;
+  sw.P = P;
   sw.R = R;
   sw.nb = nb;
   sw.c = c;
+  sw.sx = sx;
+  sw.sy = sy;
   sw.lanes = p.lanes;
   sw.tile_rows = rows;
   sw.n_rt = (R + rows - 1) / rows;
-  sw.n_tiles = sw.n_rt * ((nb + c - 1) / c);
+  sw.n_tiles = sw.n_rt * P * ((nb + c - 1) / c);
   sw.op_bytes = op_bytes;
   return sw;
 }
 
 // Launch the sweep: one CTA a tile, in slab-major order, so the CTAs that
-// run at once hold a narrow band of rows of one slab.
+// run at once hold a narrow band of rows of one slab. The kernel may take
+// Op::kHeader + Op::kOpBytes shared bytes, allowed once per instance and
+// device (the first launch on a device sets the attribute; it is not set
+// again on every launch).
 template <typename T, int VEC, int NV, class Op>
 static cudaError_t launch_sweep(const Op& op, const T* x, T* y,
                                 const Sweep& sw, cudaStream_t stream) {
-  const size_t smem = Op::kHeader + sw.op_bytes;
-  auto kern = slab_sweep<T, VEC, NV, Op>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  constexpr long long kMaxSmem = Op::kHeader + Op::kOpBytes;
+  static std::atomic<unsigned long long> allowed{0};  // a bit per device
+  const long long smem = Op::kHeader + sw.op_bytes;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (sw.n_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kern<<<(unsigned)sw.n_tiles, kThreads, smem, stream>>>(op, x, y, sw);
+  auto kern = slab_sweep<T, VEC, NV, Op>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit == 0 || (allowed.load(std::memory_order_acquire) & bit) == 0) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxSmem);
+    if (e != cudaSuccess) return e;
+    allowed.fetch_or(bit, std::memory_order_release);
+  }
+  kern<<<(unsigned)sw.n_tiles, kThreads, (size_t)smem, stream>>>(op, x, y,
+                                                                 sw);
   return cudaGetLastError();
 }
 

@@ -20,11 +20,13 @@ carries the fused epilogue otherwise.
 An op census (``launch/op_analysis.py``) sees PyTorch's own ops, not a
 kernel launched through ``ctypes``. So each call of a wrapper reports
 itself to the active censuses (:data:`censuses`) as one op of its kernel,
-with the bytes of its bound (the operator as the kernel reads it, x,
+with the bytes of its bound (the operator as the kernel reads it, x, y0,
 w1 and w2 where the kernel takes them, and y, each once: ``PERF.md`` §6)
 and 2·nnz·n_b flops (×4 complex), and the ops inside the call are kept
 out of their counts: the plain version's on the CPU, the wrapper's
-allocations on the card. The count is the same on either device.
+allocations on the card. The count is the same on either device. An ELL
+launch is counted by :func:`ell_census` alone, which the engines' grouped
+launch and the plain version standing for it enter too.
 """
 from __future__ import annotations
 
@@ -70,18 +72,51 @@ def _flops(nnz: int, n_b: int, dtype: torch.dtype) -> float:
 
 
 def ell_cost(cols, vals, x_rows: int, n_b: int, epilogue: bool,
-             compact: CompactEll | None = None) -> tuple:
+             compact: CompactEll | None = None, y0: bool = False,
+             w1_is_x: bool = False) -> tuple:
     """``(name, n_bytes, flops)`` of one ELL kernel launch on the block
-    ``cols/vals [R, W]`` against ``x [x_rows, n_b]``: the operator as the
-    kernel reads it (:func:`plan.ell_operator_bytes`), x, with the
-    epilogue w1 and w2, and y."""
-    R = int(cols.shape[0])
+    ``cols/vals [R, W]``, or on the block of P row shards ``[P, R, W]``
+    (one launch for all of them, ``compact`` their stacked form), against
+    each shard's ``x [x_rows, n_b]``: the operator as the kernel reads it
+    (:func:`plan.ell_operator_bytes` of all its rows), every shard's x,
+    ``y0`` when the launch starts from one, with the epilogue w1 (unless
+    ``w1_is_x``: it is x's leading rows, read once with x) and w2, and
+    y."""
+    P = int(cols.shape[0]) if cols.dim() == 3 else 1
+    rows = P * int(cols.shape[-2])
     S = vals.element_size()
     nnz = (compact.cols.numel() if compact is not None
            else int((vals != 0).sum()))
-    vec = (x_rows + R * (3 if epilogue else 1)) * n_b * S
+    blocks = (1 + (1 if y0 else 0)
+              + ((1 if w1_is_x else 2) if epilogue else 0))
+    vec = (P * x_rows + rows * blocks) * n_b * S
     return ("ell_gather_cheb" if epilogue else "ell_gather",
-            ell_operator_bytes(R, nnz, S) + vec, _flops(nnz, n_b, vals.dtype))
+            ell_operator_bytes(rows, nnz, S) + vec,
+            _flops(nnz, n_b, vals.dtype))
+
+
+def leads(w1, x) -> bool:
+    """Whether ``w1`` is the leading rows of ``x`` (the same start and
+    strides, no more rows): the block that a launch reads once for both,
+    as the s-step filter's step reads its extended block."""
+    return (w1.data_ptr() == x.data_ptr() and w1.stride() == x.stride()
+            and w1.shape[:-2] == x.shape[:-2] and w1.shape[-1] == x.shape[-1]
+            and w1.shape[-2] <= x.shape[-2])
+
+
+def ell_census(cols, vals, x, y0, epilogue, compact: CompactEll | None = None):
+    """The one rule by which an op census counts an ELL launch: a context
+    (a null one while no census is active) that reports the launch of
+    ``cols/vals`` on ``x [Rx, n_b]`` or ``[P, Rx, n_b]``, from ``y0`` or
+    None, with ``epilogue = (w1, w2, alpha, beta)`` or None, as one op
+    (:func:`ell_cost`) and keeps the ops run inside out of the counts. The
+    kernel's launch and the plain version that stands for it enter it
+    alike."""
+    if not censuses:
+        return contextlib.nullcontext()
+    return kernel_calls(lambda: [ell_cost(
+        cols, vals, x.shape[-2], x.shape[-1], epilogue is not None, compact,
+        y0 is not None, epilogue is not None and leads(epilogue[0], x))])
 
 
 def dia_cost(offsets, dvals, x, w1, w2, compact: CompactDia | None = None
@@ -108,27 +143,18 @@ def ell_spmv(cols, vals, x, y0=None, *, compact: CompactEll | None = None,
     built here when omitted), the plain version ``cols/vals``; ``slab``
     forces the kernel's slab width (the plain version has none). ``out``
     [R, n_b], when given, receives the result (it may be ``y0``)."""
-    if censuses:
-        with kernel_calls(lambda: [ell_cost(cols, vals, x.shape[0],
-                                            x.shape[1], epilogue is not None,
-                                            compact)]):
-            return _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out)
-    return _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out)
+    with ell_census(cols, vals, x, y0, epilogue, compact):
+        if x.device.type != "cpu":
+            from .ell_gather import ell_gather_spmv
 
-
-def _ell_spmv(cols, vals, x, y0, compact, slab, epilogue, out):
-    if x.device.type == "cpu":
+            return ell_gather_spmv(cols, vals, x, y0, compact=compact,
+                                   slab=slab, epilogue=epilogue, out=out)
         acc = y0 if y0 is not None else torch.zeros(
             (cols.shape[0], x.shape[1]), dtype=torch.result_type(vals, x))
         y = ref.ell_spmv_acc_ref(acc, cols, vals, x)
         if epilogue is not None:
-            w1, w2, alpha, beta = epilogue
-            y = ref.cheb_epilogue(y, w1, w2, alpha, beta)
+            y = ref.cheb_epilogue(y, *epilogue)
         return y if out is None else out.copy_(y)
-    from .ell_gather import ell_gather_spmv
-
-    return ell_gather_spmv(cols, vals, x, y0, compact=compact, slab=slab,
-                           epilogue=epilogue, out=out)
 
 
 def cheb_dia(offsets, dvals, x, w1, w2, alpha, beta, *,

@@ -14,7 +14,8 @@ Python and torch so that the CPU tests reach it:
   table where they take few distinct values;
 * :class:`CompactEll`: the padding-free form the ``ell_gather`` kernel
   reads, per row only its stored entries in slot order, with int32 row
-  pointers;
+  pointers, for one block or stacked over the P row shards of a block
+  (:func:`compact_ell_grouped`), which one launch takes;
 * :func:`slab_width`: the rule that picks the DIA step's ``c`` (the ELL
   product keeps ``c = n_b``).
 """
@@ -53,15 +54,17 @@ TILE_ROWS = 128
 ELL_TILE_ROWS = 256
 
 
-def tile_max(rowptr: torch.Tensor, rows: int) -> int:
-    """Most entries in ``rows`` rows from a multiple of ``rows``."""
+def tile_max(rowptr: torch.Tensor, rows: int, P: int = 1) -> int:
+    """Most entries in ``rows`` rows from a multiple of ``rows`` of a
+    shard, ``rowptr`` holding ``P`` shards' rows one after another."""
     rp = rowptr.to(torch.int64)
-    R = rp.numel() - 1
+    R = (rp.numel() - 1) // P
     if R < 1:
         return 0
     starts = torch.arange(0, R, rows, device=rp.device)
     ends = torch.clamp(starts + rows, max=R)
-    return int((rp[ends] - rp[starts]).max())
+    base = torch.arange(P, device=rp.device)[:, None] * R
+    return int((rp[base + ends] - rp[base + starts]).max())
 
 
 def row_pointers(counts: torch.Tensor) -> torch.Tensor:
@@ -226,24 +229,33 @@ class CompactEll:
     """Padding-free form of an ELL block ``cols/vals [R, W]``: row ``r``'s
     stored (non-zero) entries are ``cols[rowptr[r]:rowptr[r+1]]`` and
     ``vals[...]``, in slot order, so a contraction over them folds the
-    same products in the same order as one over the padded block."""
+    same products in the same order as one over the padded block.
 
-    rowptr: torch.Tensor  # int32 [R + 1]
+    The stacked form of ``P`` row shards' blocks ``[P, R, W]``
+    (:func:`compact_ell_grouped`) holds their ``P·R`` rows one after
+    another, shard p's row r at ``p·R + r``, each row's columns local to
+    its shard's source rows; ``P = 1`` is one block."""
+
+    rowptr: torch.Tensor  # int32 [P·R + 1]
     cols: torch.Tensor    # int32 [nnz]
     vals: torch.Tensor    # [nnz]
     max_row: int          # most entries in one row
+    x_rows: int           # fewest source rows a shard's x may have
+    P: int = 1            # row shards
 
     @property
     def R(self) -> int:
-        return int(self.rowptr.shape[0]) - 1
+        """Rows of a shard."""
+        return (int(self.rowptr.shape[0]) - 1) // self.P
 
     @functools.cached_property
     def tile_max(self) -> int:
-        """Most entries in ELL_TILE_ROWS rows from a multiple of it."""
-        return tile_max(self.rowptr, ELL_TILE_ROWS)
+        """Most entries in ELL_TILE_ROWS rows of a shard from a multiple
+        of it."""
+        return tile_max(self.rowptr, ELL_TILE_ROWS, self.P)
 
     def to_ell(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """``cols/vals [R, max_row]``: the entries in slot order, padded
+        """``cols/vals [P·R, max_row]``: the entries in slot order, padded
         with column 0 and value 0."""
         rp = self.rowptr.to(torch.int64)
         slot = torch.arange(self.max_row, device=rp.device)
@@ -257,10 +269,22 @@ def compact_ell(cols: torch.Tensor, vals: torch.Tensor) -> CompactEll:
     """The padding-free form of ``cols/vals [R, W]`` (on their device)."""
     nz = vals != 0  # row-major: each row's entries in slot order
     counts = nz.sum(dim=1)
-    return CompactEll(rowptr=row_pointers(counts),
-                      cols=cols[nz].to(torch.int32).contiguous(),
+    stored = cols[nz].to(torch.int32).contiguous()
+    return CompactEll(rowptr=row_pointers(counts), cols=stored,
                       vals=vals[nz].contiguous(),
-                      max_row=int(counts.max()) if counts.numel() else 0)
+                      max_row=int(counts.max()) if counts.numel() else 0,
+                      x_rows=int(stored.max()) + 1 if stored.numel() else 0)
+
+
+def compact_ell_grouped(cols: torch.Tensor, vals: torch.Tensor) -> CompactEll:
+    """The stacked padding-free form of ``P`` row shards' blocks
+    ``cols/vals [P, R, W]`` (on their device): the shards' rows one after
+    another, row pointers over all of them, columns as the blocks hold
+    them (local to each shard's source rows), ``tile_max`` taken over
+    tiles inside the shards."""
+    P, R, W = cols.shape
+    one = compact_ell(cols.reshape(P * R, W), vals.reshape(P * R, W))
+    return dataclasses.replace(one, P=int(P))
 
 
 def model_bytes(R: int, n_b: int, S: int, c: int, op_bytes_per_row: float,
@@ -300,6 +324,7 @@ def ell_operator_bytes(R: int, nnz: int, S: int) -> int:
 
 
 def ell_bytes_per_row(cp: CompactEll) -> float:
-    """:func:`ell_operator_bytes` of ``cp`` per row."""
-    return (ell_operator_bytes(cp.R, cp.cols.numel(), cp.vals.element_size())
-            / max(cp.R, 1))
+    """:func:`ell_operator_bytes` of ``cp`` per row (of all its shards)."""
+    rows = cp.P * cp.R
+    return (ell_operator_bytes(rows, cp.cols.numel(), cp.vals.element_size())
+            / max(rows, 1))

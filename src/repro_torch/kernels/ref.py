@@ -18,9 +18,10 @@ of the reference's scan body ``acc + v·x[c]`` on the CPU:
   separate torch operations on the real planes, each FMA an ``addcmul``,
   so that the plain version computes the same function on both devices.
 
-``ell_spmv_slab_ref`` and ``cheb_dia_compact_ref`` follow the CUDA kernels'
-schedule instead (column slabs, the compact DIA form); the CPU tests hold
-them bit-equal to the two plain versions above them.
+``ell_spmv_slab_ref``, ``cheb_dia_compact_ref`` and ``ell_grouped_ref``
+follow the CUDA kernels' schedule instead (column slabs, the compact DIA
+form, one launch over the stacked form of P row shards); the CPU tests
+hold them bit-equal to the two plain versions above them.
 """
 from __future__ import annotations
 
@@ -117,6 +118,37 @@ def cheb_dia_compact_ref(offsets, compact, x, w1, w2, alpha, beta, slab):
         acc = ell_spmv_ref(cols, vals, x[:, j0:j1])
         y[:, j0:j1] = cheb_epilogue(acc, w1[:, j0:j1], w2[:, j0:j1], alpha, beta)
     return y
+
+
+def ell_grouped_ref(compact, x, y0=None, epilogue=None):
+    """The grouped ELL launch's plain version: ``y0 + A_p·x_p`` for each
+    of the ``P`` row shards of ``compact`` (``plan.compact_ell_grouped``),
+    with ``epilogue = (w1, w2, alpha, beta)`` its Chebyshev step
+    ``2a·(y0 + A_p·x_p) + 2b·w1 − w2``. ``x [P, Rx, nb]``, ``y0``, ``w1``,
+    ``w2 [P, R, nb]`` are the views the kernel takes, each shard's rows
+    read where the view's shard stride puts them. It walks the stacked
+    form as the kernel does: shard p's row r is row ``p·R + r``, its
+    stored entries in slot order, each column local to the shard's x, each
+    folded into the accumulator (``y0``, or 0) by :func:`mac`; an entry
+    that is not stored is not visited. Returns a new ``[P, R, nb]``."""
+    P, R = compact.P, compact.R
+    nb = x.shape[2]
+    cols, vals = compact.to_ell()  # [P·R, max_row], padded past each row
+    rp = compact.rowptr.to(torch.int64)
+    live = (torch.arange(compact.max_row, device=x.device)[None, :]
+            < (rp[1:] - rp[:-1])[:, None]).view(P, R, -1)
+    cols = cols.to(torch.int64).view(P, R, -1)
+    vals = vals.view(P, R, -1)
+    shard = torch.arange(P, device=x.device)[:, None]
+    acc = (y0.clone() if y0 is not None else
+           torch.zeros((P, R, nb), dtype=x.dtype, device=x.device))
+    for w in range(compact.max_row):
+        stored = live[:, :, w, None]
+        acc = torch.where(stored, mac(acc, vals[:, :, w, None],
+                                      x[shard, cols[:, :, w]]), acc)
+    if epilogue is not None:
+        acc = cheb_epilogue(acc, *epilogue)
+    return acc
 
 
 def cheb_epilogue(y, w1, w2, alpha, beta):

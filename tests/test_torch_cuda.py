@@ -341,6 +341,106 @@ def test_ell_epilogue_entry_vs_plain(card, R, Rx, W, nb, dtype):
         ops.ell_spmv(cols, vals, x, y0, epilogue=(w1, w2[:-1], a, b))
 
 
+def _shard_views(g, card, P, rows, nb, dtype, lead):
+    """A ``[P, rows, nb]`` view of random values, each shard's rows
+    ``lead`` rows into a ``[P, rows + lead + 2, nb]`` buffer: a strided
+    view whose shard stride is not ``rows · nb``."""
+    buf = torch.randn((P, rows + lead + 2, nb), generator=g, device=card,
+                      dtype=dtype)
+    return buf[:, lead:lead + rows]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,R,Rx,W,nb,lead", [
+    (1, 1000, 1500, 9, 1, 0), (4, 777, 900, 13, 37, 1),
+    (8, 513, 600, 5, 64, 2), (8, 256, 300, 3, 8, 1), (4, 100, 130, 0, 19, 0)])
+def test_grouped_launch_equals_per_shard_launches(card, P, R, Rx, W, nb,
+                                                  lead, dtype):
+    """One launch for P row shards (``ell_gather.EllLaunch`` on the
+    stacked form) against one launch per shard and the grouped plain
+    version (``ref.ell_grouped_ref``), on strided shard views, with and
+    without ``y0`` and the epilogue, ``out`` also ``y0``: bit-equal in
+    fp64 and complex128, within 1e-5 in fp32 and complex64; ragged R and
+    n_b, a shard block with no entries (shard 1, and W = 0); each call one
+    launch."""
+    from repro_torch.kernels.ell_gather import EllLaunch
+
+    g = torch.Generator(device=card).manual_seed(P * R + W)
+    cols = torch.randint(0, Rx, (P, R, W), generator=g, device=card,
+                         dtype=torch.int32)
+    vals = torch.randn((P, R, W), generator=g, device=card, dtype=dtype)
+    if W:
+        vals[torch.rand((P, R, W), generator=g, device=card) < 0.2] = 0
+    if P > 1:
+        vals[1] = 0  # a shard block with no entries
+    cp = plan.compact_ell_grouped(cols, vals)
+    launch = EllLaunch(cp)
+    x = _shard_views(g, card, P, Rx, nb, dtype, lead)
+    y0, w1, w2 = (_shard_views(g, card, P, R, nb, dtype, lead)
+                  for _ in range(3))
+    a, b = 0.013, -0.4
+
+    def close(got, want):
+        if dtype in (torch.float64, torch.complex128):
+            return torch.equal(got, want)
+        return bool((got - want).abs().max() <= _tol(dtype)
+                    * max(float(want.abs().max()), 1e-30))
+
+    for start in (None, y0):
+        for epi in (None, (w1, w2, a, b)):
+            name = "ell_gather" if epi is None else "ell_gather_cheb"
+            out = _shard_views(g, card, P, R, nb, dtype, lead + 1)
+            n0 = dict(build.launches)
+            launch(x, start, out=out, epilogue=epi)
+            assert build.launches[name] == n0[name] + 1
+            assert sum(build.launches.values()) == sum(n0.values()) + 1
+            per_shard = torch.stack([ops.ell_spmv(
+                cols[p], vals[p], x[p].contiguous(),
+                None if start is None else start[p].contiguous(),
+                epilogue=None if epi is None else (
+                    w1[p].contiguous(), w2[p].contiguous(), a, b))
+                for p in range(P)])
+            want = ref.ell_grouped_ref(cp, x, start, epi)
+            torch.cuda.synchronize()
+            assert close(out, want) and close(per_shard, want)
+            if dtype in (torch.float64, torch.complex128):
+                assert torch.equal(out, per_shard)
+    inplace = y0.clone()
+    launch(x, inplace, out=inplace, epilogue=(w1, w2, a, b))
+    want = launch(x, y0, out=torch.empty_like(y0), epilogue=(w1, w2, a, b))
+    torch.cuda.synchronize()
+    assert torch.equal(inplace, want)
+
+
+def test_grouped_launch_refuses_what_it_cannot_take(card):
+    from repro_torch.kernels.ell_gather import EllLaunch
+
+    P, R, nb = 4, 64, 8
+    cols = torch.zeros((P, R, 3), dtype=torch.int32, device=card)
+    cols[:, :, 1] = 9
+    vals = torch.ones((P, R, 3), dtype=torch.float64, device=card)
+    launch = EllLaunch(plan.compact_ell_grouped(cols, vals))
+    x = torch.ones((P, R, nb), dtype=torch.float64, device=card)
+    out = torch.empty_like(x)
+    with pytest.raises(ValueError, match="x"):  # columns past x's rows
+        launch(x[:, :9], out=out)
+    with pytest.raises(ValueError, match="out may not overlap x"):
+        launch(x, out=x)
+    with pytest.raises(ValueError, match="out"):  # shards overlap
+        launch(x, out=out[:1].expand(P, R, nb))
+    with pytest.raises(ValueError, match="w2"):
+        launch(x, out=out, epilogue=(x, x[:, :-1], 1.0, 0.0))
+    with pytest.raises(ValueError, match="out may not be"):
+        launch(x, out=out, epilogue=(x, out, 1.0, 0.0))
+    buf = torch.zeros(P * R * nb + nb, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="y0 may be out"):  # one row off
+        launch(x, buf[nb:].view(P, R, nb), out=buf[:-nb].view(P, R, nb))
+    with pytest.raises(ValueError, match="x"):
+        launch(x.to(torch.float32), out=out)
+    with pytest.raises(ValueError, match="CUDA"):
+        EllLaunch(plan.compact_ell_grouped(cols.cpu(), vals.cpu()))
+
+
 ENGINES = [("a2a", "cyclic", False, True), ("a2a", "cyclic", True, True),
            ("compressed", "cyclic", False, True),
            ("compressed", "cyclic", True, False),
@@ -378,7 +478,8 @@ def test_engines_on_the_card_bitwise(card, fam, P, dtype):
         n0 = dict(build.launches)
         y, s = spmv(x), step(x, w2, 0.21, -0.33)
         assert build.launches["ell_gather"] > n0["ell_gather"]
-        assert build.launches["ell_gather_cheb"] == n0["ell_gather_cheb"] + P
+        # one launch a phase for all P shards; the epilogue's phase is one
+        assert build.launches["ell_gather_cheb"] == n0["ell_gather_cheb"] + 1
         assert build.launches["cheb_dia"] == n0["cheb_dia"]
         y_p = make_spmv(ell, group=gp, **kw)(x)
         s_p = make_fused_cheb_step(ell, group=gp, **kw)(x, w2, 0.21, -0.33)
@@ -518,7 +619,9 @@ def test_panel_and_pillar_steps_equal_the_full_width_step(card, fam, n_row,
     got = to_stack([step(xj, w2j, 0.3, -0.2) for xj, w2j in zip(xp, w2p)])
     torch.cuda.synchronize()
     kernel = "cheb_dia" if route == "dia" else "ell_gather_cheb"
-    assert build.launches[kernel] == n0[kernel] + n_col * n_row
+    # the DIA step launches per shard, the ELL step once for its N_row
+    per_bundle = n_row if route == "dia" else 1
+    assert build.launches[kernel] == n0[kernel] + n_col * per_bundle
     assert torch.equal(got, want)
 
 
@@ -587,13 +690,16 @@ def test_fit_machine_prices_the_exchange(card):
     P = 4, N_s = 512): b_m from the 1 GiB copy, a finite b_c and κ > 0 —
     a model that prices both the exchange and the vectors. (Smaller
     operators are launch-bound: the exchange barely shows in their
-    times, and the fit may leave b_c at +inf.)"""
+    times, and the fit may leave b_c at +inf.) Each sample is the mean of
+    ``fit_machine``'s default 20 steps: with one launch a phase for all
+    shards a tiny-width step is a few tens of µs, and over 5 steps one
+    host stall can move a sample several-fold and the fit's b_c to +inf."""
     import math
 
     from repro_torch.launch.dryrun import fit_machine
 
     fit, samples = fit_machine(Hubbard(11, 5, U=4.0, ranpot=1.0), None,
-                               n_devices=4, n_search=512, reps=5,
+                               n_devices=4, n_search=512, reps=20,
                                device=card, verbose=False)
     assert len(samples) == 5  # 4x1 and 2x2 at two widths, 1x4 at one
     assert all(s["t"] > 0 and s["t_model"] > 0 for s in samples)
@@ -645,8 +751,8 @@ def test_sstep_filter_on_the_card_bitwise(card, s, dtype):
     each engine at degrees 3 and 8: bit-equal to the s = 1 filter (the
     fused step) through the same engine, and to the same filter from the
     plain versions on the card (complex64: to 1e-5 of max|Y|, as the
-    kernel is held in that dtype); every step one ELL launch per shard,
-    the DIA kernel never."""
+    kernel is held in that dtype); every step one ELL launch for all P
+    shards, the DIA kernel never."""
     from repro_torch.core import (ShardGroup, build_dist_ell,
                                   build_sstep_ell, chebyshev_filter,
                                   make_fused_cheb_step, make_spmv,
@@ -685,8 +791,8 @@ def test_sstep_filter_on_the_card_bitwise(card, s, dtype):
                 assert torch.equal(Y, Yp), (degree, comm, sched, ov)
             assert torch.equal(Y, Y1), (degree, comm, sched, ov)
             split = 1 if ov else 0  # step 0's local prefix: one more launch
-            assert launched["ell_gather_cheb"] == P * (degree - 1)
-            assert launched["ell_gather"] == P * (1 + split) + P * split * (
+            assert launched["ell_gather_cheb"] == degree - 1
+            assert launched["ell_gather"] == (1 + split) + split * (
                 sell.n_groups(degree) - 1)
             assert launched["cheb_dia"] == 0
 

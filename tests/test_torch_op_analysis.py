@@ -12,7 +12,7 @@ the CPU.
   the operator as the kernel reads it, x, w1, w2 where it takes them, y)
   and 2·nnz·n_b flops, whatever runs inside it: a one-shard Hubbard(6,3)
   fused step through ``cheb_dia``, and the P-shard ELL engine whose plain
-  version stands for P kernel launches.
+  version stands for the one kernel launch of all P shards.
 """
 import jax
 import numpy as np
@@ -149,8 +149,9 @@ def test_a_dia_step_is_one_cheb_dia_op_with_its_bound_bytes(monkeypatch):
 
 def test_the_plain_engine_stands_for_the_kernel_launches():
     """With the kernels on, the P-shard ELL engine's plain version on the
-    CPU counts as the P kernel launches the card makes, each with its
-    bound bytes; with them off its ops are counted instead."""
+    CPU counts as the one kernel launch the card makes for all P shards,
+    with the bound bytes of the shards' stacked form; with them off its
+    ops are counted instead."""
     A = RoadNet(n=4000, w=2, m=256, k=4).build_csr()
     ell = build_dist_ell(A, 4, dtype="float64", device="cpu")
     gen = torch.Generator().manual_seed(0)
@@ -161,14 +162,12 @@ def test_the_plain_engine_stands_for_the_kernel_launches():
     assert step.kind != "dia"
     y, c = count_ops(step, w1, w2, 0.3, -0.1, groups=(step.group,))
     k = c.kernels["ell_gather_cheb"]
-    assert k["calls"] == 4
+    assert k["calls"] == 1
     Rx = ell.R + ell.P * ell.L  # each shard's [x_p ‖ halo]
-    want = 0.0
-    for p in range(ell.P):
-        cpe = plan.compact_ell(ell.cols[p], ell.vals[p])
-        want += ops.ell_cost(ell.cols[p], ell.vals[p], Rx, 8, True, cpe)[1]
-        assert ops.ell_cost(ell.cols[p], ell.vals[p], Rx, 8, True, cpe)[1] \
-            == plan.ell_bytes_per_row(cpe) * ell.R + (Rx + 3 * ell.R) * 8 * 8
+    cpe = plan.compact_ell_grouped(ell.cols, ell.vals)
+    want = ops.ell_cost(ell.cols, ell.vals, Rx, 8, True, cpe)[1]
+    assert want == (plan.ell_bytes_per_row(cpe) * ell.P * ell.R
+                    + ell.P * (Rx + 3 * ell.R) * 8 * 8)
     assert k["bytes"] == want
     assert c.coll_breakdown["all_to_all"] == ell.P * ell.P * ell.L * 8 * 8
     off = make_fused_cheb_step(ell, group=ShardGroup(4, "cpu"),
