@@ -178,6 +178,32 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    * the RoadNet solve in the pillar layout 1 × 8 on the RCM row map
      (``--spmv-reorder rcm``): the ELL route with no halo in the filter;
      its eigenvalues equal to the one-shard solve's to 1e-9;
+7b. ranks — one process per shard (``repro_torch.core.ranks``): three
+   solves, each first in one process on the card through the CLI, then on
+   4 gloo ranks sharing the card, one ``python -m torch.distributed.run
+   --standalone --nproc-per-node 4 chip_smoke.py --ranks-worker SPEC``
+   launch for all three (the kernels built before it, so the ranks only
+   load them), each rank its own shard's rows and its own bundle, every
+   collective a ``torch.distributed`` call staged through pinned host
+   memory (gloo, host-staged, 4 ranks on one card: not a network):
+   RoadNet(48000) stack 4 × 1 with the compressed cyclic split-phase
+   engine and panel 2 × 2 (``ell_gather`` and ``ell_gather_cheb`` on
+   every rank), Hubbard(10,5) pillar 1 × 4 (``cheb_dia`` on every rank's
+   bundle), each at the solves phase's N_s, dtype and target and its
+   n_target but the Hubbard pillar's, cut 8 → 4 for the phase's 90 s
+   (its stack level on the compressed matching rounds: they move 2.4×
+   fewer bytes than a2a over gloo's loopback TCP). The launch starts
+   first; the one-process solves run beside the ranks.
+   Checks: eigenvalues within 1e-9 of the one-process solve's,
+   iterations within one, the host residual ≤ 1e-8; each rank's
+   launches of its route's step kernel equal to Σ(degree − 1) of its own
+   bundle's filters, ``ell_gather`` on every rank; where the degrees
+   agree, the bytes and calls summed over the ranks equal to the one
+   process's; and, first, one fused step of each rank at the
+   RoadNet(48000) P = 4 shape (n_b = 64, fp64; compressed split-phase
+   and a2a) bit-equal to the one-process grouped launch's rows. One line
+   gives each run's wall, its halo exchange ms a step, its
+   redistribution ms and its staged bytes;
 8. service — the eigensolve service (``repro_torch.service``) on the
    roadnet48k config at full width, RoadNet(48000), fp64, N_s = 64 a
    request, two requests ("a": n_target 16, seed 11; "b": n_target 8,
@@ -310,7 +336,9 @@ run, and its dtype cases).
 ``--kernels-only`` stops after phase 3 and prints no result line (for
 tuning the kernels; the full run is the check); ``--lm-only`` runs phases
 10 and 11 alone, with no kernel build and no result line;
-``--dryrun-only`` runs the build and phase 12 alone, with no result line.
+``--dryrun-only`` runs the build and phase 12 alone, with no result line;
+``--ranks-only`` the build and phase 7b alone (its targets from ``eigsh``
+as the solves phase takes them), with no result line.
 """
 from __future__ import annotations
 
@@ -382,6 +410,16 @@ BUNDLE_NB = dict(hubbard=N_SEARCH // 4, exciton=EX_N_SEARCH // EX_PILLAR[1],
 # iteration 30
 SVC_REQUESTS = (("a", RN_N_TARGET, 11), ("b", 8, 22))
 SVC_SHARDS, SVC_CKPT_INTERVAL, SVC_FAULT_AT = 8, 20, 30
+# the ranks phase: 4 gloo ranks sharing the card, its three grids, the
+# Hubbard pillar's n_target, cut from the solves phase's 8 to 4 for the
+# phase's 90 s (at 8 the phase took 108.5 s; at 4 the solve still took
+# 54 iterations, H100 80GB HBM3 at 700 W), the reps of its timed halo
+# exchange and the launch's time limit
+RANKS_WORLD = 4
+RANKS_STACK, RANKS_PANEL, RANKS_PILLAR = (4, 1), (2, 2), (1, 4)
+RANKS_HUBBARD_N_TARGET = 4
+RANKS_EXCHANGE_REPS = 20
+RANKS_TIMEOUT_S = 300
 # the analysis phase's census filter degree
 ANALYSIS_DEGREE = 8
 # the dryrun phase: its eigen cells (the reference's tests/test_analysis.py
@@ -2146,6 +2184,329 @@ def phase_solves(fit_path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: one process per shard (the ranks phase)
+# ---------------------------------------------------------------------------
+
+def ranks_cases(solves: dict) -> list:
+    """The ranks phase's solves, each at its config's N_s, n_target and
+    dtype and at the solves phase's target: a label, the family and its
+    parameters, the grid ``(n_row, n_col)``, the layout, the engine flags
+    and the solve's knobs."""
+    rn = dict(family="RoadNet", params=ROADNET, n_search=RN_N_SEARCH,
+              n_target=RN_N_TARGET, target=solves["roadnet"]["target"],
+              max_iters=RN_MAX_ITERS, tol=1e-10)
+    return [
+        dict(rn, label="roadnet_stack", grid=RANKS_STACK, layout="stack",
+             engine=["--spmv-comm", "compressed", "--spmv-overlap"]),
+        dict(rn, label="roadnet_panel", grid=RANKS_PANEL, layout="panel",
+             engine=[]),
+        # the compressed matching rounds at the stack level (the pillar's
+        # filter has no halo): at P = 4 they move 23,940 rows a shard
+        # where a2a pads to 4 × 14,112, and on ranks every byte crosses
+        # gloo's loopback TCP
+        dict(label="hubbard_pillar", family="Hubbard", params=HUBBARD_SOLVE,
+             n_search=N_SEARCH, n_target=RANKS_HUBBARD_N_TARGET,
+             target=solves["hubbard"]["target"], max_iters=MAX_ITERS,
+             tol=CUT_TOL, grid=RANKS_PILLAR, layout="pillar",
+             engine=["--spmv-comm", "compressed", "--spmv-schedule",
+                     "matching"]),
+    ]
+
+
+def ranks_argv(case: dict) -> list:
+    """The CLI's flags of a ranks-phase case (without ``--backend``)."""
+    return ["--family", case["family"],
+            "--params", ",".join(f"{k}={v:g}"
+                                 for k, v in case["params"].items()),
+            "--n-search", str(case["n_search"]),
+            "--n-target", str(case["n_target"]),
+            "--target", repr(case["target"]), "--tol", repr(case["tol"]),
+            "--max-iters", str(case["max_iters"]),
+            "--layout", case["layout"], "--dtype", "float64",
+            "--spmv-kernel", "--device", "cuda", *grid(case["grid"]),
+            *case["engine"]]
+
+
+def ranks_step_check(dev, rank: int) -> dict:
+    """One fused step at the RoadNet(48000) P = 4 shape (n_b = 64, fp64),
+    kernels on, through the compressed cyclic split-phase engine and the
+    a2a engine: this rank's step against the rows of the one-process
+    grouped launch on the same card, bit for bit."""
+    import torch
+
+    from repro_torch.core import (ShardGroup, build_dist_ell,
+                                  make_fused_cheb_step)
+    from repro_torch.core.ranks import RankLink
+    from repro_torch.matrices import RoadNet
+
+    P = RANKS_WORLD
+    host = build_dist_ell(RoadNet(**ROADNET), P, device="cpu")
+    ell1 = host.held_by(ShardGroup(P, dev))  # all P shards on the card
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((ell1.D_pad, RN_N_SEARCH), generator=g, device=dev,
+                    dtype=torch.float64)
+    w2 = torch.randn(x.shape, generator=g, device=dev, dtype=torch.float64)
+    rows = slice(rank * ell1.R, (rank + 1) * ell1.R)
+    out = {}
+    for name, kw in (("compressed-cyclic-overlap",
+                      dict(overlap=True, comm="compressed", pipeline=False)),
+                     ("a2a", dict(overlap=False, comm="a2a"))):
+        g1 = ShardGroup(P, dev)
+        gr = ShardGroup(P, dev, link=RankLink(range(P), None, dev, "gloo"))
+        f1 = make_fused_cheb_step(ell1, group=g1, use_kernel=True, **kw)
+        fr = make_fused_cheb_step(host.held_by(gr), group=gr,
+                                  use_kernel=True, **kw)
+        y1 = f1(x, w2, 0.37, -0.21)
+        yr = fr(x[rows].contiguous(), w2[rows].contiguous(), 0.37, -0.21)
+        torch.cuda.synchronize()
+        out[name] = dict(bitwise=bool(torch.equal(y1[rows], yr)),
+                         staged=gr.link.staged,
+                         bytes=dict(gr.bytes), one_bytes=dict(g1.bytes))
+    return out
+
+
+def ranks_worker(spec_path: str) -> int:
+    """One rank of the ranks phase, under ``python -m
+    torch.distributed.run``: the step check, then the phase's solves
+    through the CLI's own pieces (``launch/solve.py``: its config, its
+    ``solve``, its summary on rank 0), each with this rank's launch
+    counts set to 0 just before it and read just after; writes
+    ``ranks_<rank>.json`` beside the spec."""
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.ranks import init_ranks
+    from repro_torch.kernels import build
+    from repro_torch.launch import solve as cli
+    from repro_torch.matrices import get_family
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = init_ranks("gloo", "cuda", share_card=True)
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    dist.barrier()
+    t_go = time.perf_counter()
+    rec = dict(rank=rank, device=str(dev), step=ranks_step_check(dev, rank),
+               solves={})
+    for case in spec["cases"]:
+        label, grid_ = case["label"], case["grid"]
+        args = cli.build_parser().parse_args(
+            ranks_argv(case) + ["--backend", "gloo", "--share-card"])
+        fd = cli.config_from_args(args)
+        mat = get_family(case["family"], **case["params"])
+        dist.barrier()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        solver, res = cli.solve(mat, fd, dev, grid_[0], grid_[1], None,
+                                False, ranks=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)
+        # the halo exchange of one filter step alone, every rank at once
+        xb = torch.randn((solver.ell_panel.R * solver.grid.panel.n_loc,
+                          fd.n_search // grid_[1]), device=dev,
+                         dtype=solver.dtype)
+        dist.barrier()
+        t1 = time.perf_counter()
+        for _ in range(RANKS_EXCHANGE_REPS):
+            solver.spmv_panel.exchange(xb)
+        torch.cuda.synchronize()
+        ex_ms = (time.perf_counter() - t1) * 1e3 / RANKS_EXCHANGE_REPS
+        ex = res.exchange  # the counts at the solve's end, summed
+        degrees = [h.get("degree") for h in res.history if "degree" in h]
+        r = dict(wall_s=wall, launches=launches, degrees=degrees,
+                 iterations=res.iterations, n_converged=res.n_converged,
+                 eigenvalues=[float(t) for t in res.eigenvalues],
+                 exchange_ms_a_step=ex_ms, exchange=ex,
+                 redistributions=res.redistributions,
+                 redist_time_s=res.redist_time, solve_s=res.wall_time,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        if rank == 0:  # the eigenvectors go to the parent's host check
+            cli.report(args, fd, solver, res, wall)
+            np.save(os.path.join(os.path.dirname(spec_path),
+                                 f"vectors_{label}.npy"), res.eigenvectors)
+        rec["solves"][label] = r
+        del solver, res
+    rec["work_s"] = time.perf_counter() - t_go
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"ranks_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_ranks(solves: dict, out_dir: str) -> dict:
+    """The phase's three solves on ``RANKS_WORLD`` gloo ranks sharing the
+    card (``python -m torch.distributed.run``, one launch for all three,
+    the kernels built beforehand so the ranks only load them), held to
+    the same three in one process on the card (through the CLI, as the
+    solves phase runs them; module docstring). The one-process solves
+    run here while the ranks start up and run theirs, so each wall is
+    taken beside the other's load."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.matrices import get_family
+
+    both = dict(ell_gather=True, ell_gather_cheb=False, cheb_dia=True)
+    ell_route = dict(ell_gather=True, ell_gather_cheb=True, cheb_dia=False)
+    cases = ranks_cases(solves)
+    t_phase = time.perf_counter()
+    work = os.path.join(out_dir, "ranks_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(cases=cases), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(RANKS_WORLD), os.path.abspath(__file__),
+           "--ranks-worker", spec]
+    log("[ranks] " + " ".join(cmd))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        one, host = {}, {}
+        for c in cases:
+            if c["family"] not in host:
+                host[c["family"]] = get_family(
+                    c["family"], **c["params"]).build_csr().to_scipy()
+            one[c["label"]] = run_solve(
+                c["label"] + "_one", c["family"], c["params"],
+                host[c["family"]], n_search=c["n_search"],
+                n_target=c["n_target"], target=c["target"],
+                max_iters=c["max_iters"], tol=c["tol"],
+                launched=both if c["family"] == "Hubbard" else ell_route,
+                layout=c["layout"],
+                engine=grid(c["grid"]) + tuple(c["engine"]))
+        torch.cuda.empty_cache()  # the ranks share this card
+        printed, _ = proc.communicate(timeout=RANKS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"the ranks launch passed {RANKS_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:  # stop every process the launch started
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    launch_s = time.perf_counter() - t_phase
+    tail = "\n".join(printed.splitlines()[-40:])
+    log(f"[ranks] launch exit {proc.returncode} in {launch_s:.1f} s; its "
+        f"output's tail:\n{tail}")
+    if proc.returncode != 0:
+        lines = printed.splitlines()
+        first = next((i for i, ln in enumerate(lines) if "Traceback" in ln),
+                     max(len(lines) - 60, 0))
+        log("[ranks] the first traceback:\n" + "\n".join(lines[first:first
+                                                              + 60]))
+        raise SmokeFailure(f"the ranks launch exited {proc.returncode}")
+    recs = []
+    for r in range(RANKS_WORLD):
+        with open(os.path.join(work, f"ranks_{r}.json")) as f:
+            recs.append(json.load(f))
+    for c in cases:  # the host check of rank 0's eigenvectors
+        lead = recs[0]["solves"][c["label"]]
+        X = np.load(os.path.join(work, f"vectors_{c['label']}.npy"))
+        theta = np.asarray(lead["eigenvalues"])
+        resid = np.linalg.norm(host[c["family"]] @ X - X * theta, axis=0)
+        lead.update(host_residual_max=float(resid.max()),
+                    finite=bool(np.isfinite(X).all()
+                                and np.isfinite(theta).all()),
+                    vectors=list(X.shape))
+    del host
+    shutil.rmtree(work, ignore_errors=True)
+    out = dict(one=one, launch_s=launch_s, step={}, runs={},
+               work_s=[r["work_s"] for r in recs])
+    for r in recs:
+        for name, s in r["step"].items():
+            out["step"].setdefault(name, []).append(s["bitwise"])
+            if not s["bitwise"]:
+                raise SmokeFailure(f"rank {r['rank']}'s {name} step differs "
+                                   "from the one-process grouped launch")
+    for c in cases:
+        label, family, grid_ = c["label"], c["family"], c["grid"]
+        per = [r["solves"][label] for r in recs]
+        lead, ref = per[0], one[label]
+        n_t, t = c["n_target"], c["target"]
+        dev = float(np.abs(closest(lead["eigenvalues"], t, n_t)
+                           - closest(ref["eigenvalues"], t, n_t)).max())
+        # what each rank's own degrees predict: a fused step of its one
+        # bundle is one epilogue (ELL) or DIA launch
+        steps = [sum(d - 1 for d in p["degrees"]) for p in per]
+        kernel = "cheb_dia" if family == "Hubbard" else "ell_gather_cheb"
+        other = "ell_gather_cheb" if family == "Hubbard" else "cheb_dia"
+        launches_ok = all(
+            p["launches"][kernel] == s and p["launches"]["ell_gather"] > 0
+            and p["launches"][other] == 0 for p, s in zip(per, steps))
+        same_path = (lead["degrees"] == ref["degrees"]
+                     and lead["iterations"] == ref["iterations"])
+        ex, ex1 = lead["exchange"], ref["exchange"]
+        bytes_ok = (ex["bytes"] == ex1["bytes"] and ex["calls"] == ex1["calls"]
+                    and (ex["panel"] is None) == (ex1["panel"] is None)
+                    and (ex["panel"] is None
+                         or (ex["panel"]["bytes"], ex["panel"]["calls"])
+                         == (ex1["panel"]["bytes"], ex1["panel"]["calls"])))
+        run = dict(
+            grid=list(grid_), wall_s=[p["wall_s"] for p in per],
+            solve_s=[p["solve_s"] for p in per],
+            one_wall_s=ref["wall_s"],
+            exchange_ms_a_step=lead["exchange_ms_a_step"],
+            redistributions=lead["redistributions"],
+            redist_ms_each=(1e3 * lead["redist_time_s"]
+                            / max(lead["redistributions"], 1)),
+            staged_bytes=ex["ranks"]["staged"], iterations=lead["iterations"],
+            one_iterations=ref["iterations"], degrees_equal=same_path,
+            max_dev_from_one=dev, host_residual_max=lead["host_residual_max"],
+            launches_by_rank=[p["launches"] for p in per],
+            steps_by_rank=steps, bytes=ex["bytes"], one_bytes=ex1["bytes"],
+            panel=ex["panel"], one_panel=ex1["panel"],
+            max_memory_allocated=[p["max_memory_allocated"] for p in per])
+        out["runs"][label] = run
+        log(f"[ranks {label}] {ex['layout']} on {RANKS_WORLD} ranks: "
+            f"iterations {lead['iterations']} (one process "
+            f"{ref['iterations']}), eigenvalues max |d| {dev:.3e}, host "
+            f"residual {lead['host_residual_max']:.3e}, launches by rank "
+            f"{run['launches_by_rank']} against {kernel} {steps}, bytes "
+            f"{ex['bytes']} (one process {ex1['bytes']})")
+        if not (dev <= 1e-9 and abs(lead["iterations"] - ref["iterations"])
+                <= 1 and lead["host_residual_max"] <= 1e-8 and lead["finite"]
+                and lead["vectors"][1] == len(lead["eigenvalues"])):
+            raise SmokeFailure(f"ranks {label}: eigenvalues {dev:.3e}, "
+                               f"iterations {lead['iterations']} against "
+                               f"{ref['iterations']}, host residual "
+                               f"{lead['host_residual_max']:.3e}")
+        if not launches_ok:
+            raise SmokeFailure(f"ranks {label}: launches "
+                               f"{run['launches_by_rank']}, {kernel} should "
+                               f"be {steps}")
+        if same_path and not bytes_ok:
+            raise SmokeFailure(f"ranks {label}: bytes summed over the ranks "
+                               f"{ex['bytes']} / panel {ex['panel']} differ "
+                               f"from the one process's {ex1['bytes']} / "
+                               f"{ex1['panel']}")
+        if not same_path:
+            log(f"[ranks {label}] degrees or iterations differ from the one "
+                "process's, so the bytes are not compared")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("[ranks] gloo, host-staged, 4 ranks on one card: not a network: "
+        + "; ".join(f"{k} wall {max(v['wall_s']):.3f} s (one process "
+                    f"{v['one_wall_s']:.3f} s), exchange "
+                    f"{v['exchange_ms_a_step']:.3f} ms a step, "
+                    f"redistribution {v['redist_ms_each']:.3f} ms each, "
+                    f"staged {v['staged_bytes']} B"
+                    for k, v in out["runs"].items())
+        + f"; the ranks' work {max(out['work_s']):.1f} s, the launch "
+        f"{launch_s:.1f} s, phase {out['seconds']:.1f} s")
+    return out
+
+
 def _service_run(label: str, results: dict, A, launches: dict,
                  wall: float) -> dict:
     """One service run's record: each request's result host-checked
@@ -3248,6 +3609,20 @@ def run(args) -> int:
 
     build.load()
     log(f"[build] {build.build_seconds:.2f} s\n{build.build_log}")
+    if args.ranks_only:
+        from repro_torch.matrices import Hubbard, RoadNet
+
+        targets = dict(roadnet=dict(target=host_operator(
+            RoadNet, ROADNET, "LA")[1] + 0.1), hubbard=dict(
+            target=host_operator(Hubbard, HUBBARD_SOLVE, "SA")[1] - 0.1))
+        ranks = phase_ranks(targets, out_dir)
+        log(f"[ranks] phase {ranks['seconds']:.1f} s")
+        if args.out:
+            write_record(args.out, dict(device=dict(name=name, count=count,
+                                                    nvidia_smi=smi),
+                                        build_seconds=build.build_seconds,
+                                        ranks=ranks))
+        return 0
     if args.dryrun_only:
         dry = phase_dryrun(smi)
         log(f"[dryrun] phase {dry['seconds']:.1f} s")
@@ -3286,6 +3661,8 @@ def run(args) -> int:
     t0 = time.perf_counter()
     solves = phase_solves(fit_path)
     log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
+    ranks = phase_ranks(solves, out_dir)
+    log(f"[ranks] phase {ranks['seconds']:.1f} s")
     t0 = time.perf_counter()
     plan["sstep"] = sstep_plan_case(fit_path, solves)
     log(f"[plan] s-step against the solves {time.perf_counter() - t0:.1f} s")
@@ -3313,6 +3690,9 @@ def run(args) -> int:
         by_solve = {s: v["launches"][k]
                     for s, v in {**solves, **service["runs"]}.items()}
         by_solve["dryrun"] = dry["launches"][k]
+        for label, rr in ranks["runs"].items():  # summed over the ranks
+            by_solve[f"ranks_{label}"] = sum(
+                n[k] for n in rr["launches_by_rank"])
         line.append(dict(
             name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
             launches=sum(by_solve.values()), launches_by_solve=by_solve,
@@ -3326,7 +3706,8 @@ def run(args) -> int:
                                     build_seconds=build.build_seconds,
                                     checks=records, engines=engines,
                                     layouts=layouts, plan=plan,
-                                    solves=solves, service=service,
+                                    solves=solves, ranks=ranks,
+                                    service=service,
                                     analysis=analysis, lm=lm, train=train,
                                     dryrun=dry, kernels=line))
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s from the device "
@@ -3351,7 +3732,15 @@ def main(argv=None) -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run the device check, the build and the dryrun "
                          "phase alone (no result line)")
+    ap.add_argument("--ranks-only", action="store_true",
+                    help="run the device check, the build and the ranks "
+                         "phase alone (its targets from eigsh; no result "
+                         "line)")
+    ap.add_argument("--ranks-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)  # one rank of the ranks phase
     args = ap.parse_args(argv)
+    if args.ranks_worker:
+        return ranks_worker(args.ranks_worker)
     try:
         return run(args)
     except SmokeFailure as e:

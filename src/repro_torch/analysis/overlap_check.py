@@ -348,11 +348,14 @@ def dropped_wait(group):
     the current stream after it and without its record (an engine that
     drops its wait). The engines must then fail :func:`race_errors`. On
     the card the device is synchronized on exit, so that nothing the
-    side stream still writes is handed to a later allocation."""
+    side stream still writes is handed to a later allocation; on ranks
+    every collective still in flight is waited on exit."""
     group.wait = lambda pending: pending.result
     try:
         yield group
     finally:
         del group.wait
+        if getattr(group, "link", None) is not None:
+            group.settle()
         if group.device.type == "cuda":
             torch.cuda.synchronize(group.device)

@@ -59,6 +59,23 @@ exchanges of s steps each through the halo engine the config names, the
 CUDA ELL kernel on every step with ``spmv_kernel`` (never the DIA
 kernel, at ``N_row = 1`` too). Lanczos, the Ritz SpMV and TSQR stay at
 s = 1. The result equals the s = 1 filter's bit for bit.
+
+With ``ranks=True`` the solve is one rank's part of a launch of
+``n_row·n_col`` ranks, one a shard (``core/ranks.py``; the process group
+started, ``device`` the rank's own): rank ``b = i·n_col + k`` holds stack
+shard b's rows of the search block and bundle k's rows of panel
+row-block i, launches the kernels on those blocks only, and every
+collective is a ``torch.distributed`` call between the ranks. Each rank
+builds the operator on the host and moves its own shards' blocks to its
+device; it draws the whole start block in row order from the seed and
+keeps its rows, so it starts from the one process's vectors. The
+engines, TSQR, Gram and the redistribution give the one process's bits;
+the whole-vector reductions of Lanczos and the Ritz residuals are
+per-shard partials summed in shard order, so every rank takes the same
+branch. :meth:`FilterDiag.gather_global` gathers to every rank, and
+:meth:`FilterDiag.exchange_summary` reports the counts summed over the
+ranks. The s-step filter, ``layout="auto"`` and checkpoints
+(:meth:`FilterDiag.set_counters`) are refused on ranks.
 """
 from __future__ import annotations
 
@@ -75,7 +92,9 @@ from .layouts import LAYOUTS, layout_on_grid
 from .orthogonalize import make_gram, make_svqb, make_tsqr
 from .partition import PLAN_MODES, SPMV_BALANCES, SPMV_REORDERS, plan_rowmap
 from .planner import auto_axes, config_for, plan_on_grid
+from .ranks import LATER
 from .redistribute import REDIST_IMPLS, make_redistribute
+from .shards import COLLECTIVES
 from .spmv import (_validate_engine, build_dist_ell, build_sstep_ell,
                    make_fused_cheb_step, make_spmv, make_sstep_cheb)
 
@@ -193,15 +212,20 @@ class FilterDiag:
     """
 
     def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1,
-                 n_col: int = 1, rowmap=None):
+                 n_col: int = 1, rowmap=None, ranks: bool = False):
         _check_config(cfg)
+        if ranks and (cfg.layout == "auto" or int(cfg.spmv_sstep) > 1):
+            what = ("layout='auto'" if cfg.layout == "auto"
+                    else f"spmv_sstep={cfg.spmv_sstep}")
+            raise NotImplementedError(f"{what} on ranks comes in {LATER}")
         self.plan = None
         if cfg.layout == "auto":
             cfg, rowmap = self._resolve_layout(matrix, cfg, n_row, n_col,
                                                rowmap)
         self.cfg = cfg
         self.layout = layout_on_grid(cfg.layout, n_row, n_col)
-        self.grid = self.layout.shards(device)
+        self.grid = self.layout.shards(device, ranks=ranks)
+        self.ranks = self.grid.ranks
         self.group = self.grid.stack
         self.device = self.grid.device
         self.P = self.grid.P
@@ -221,13 +245,15 @@ class FilterDiag:
         self.rowmap = rowmap
         self.D_pad = rowmap.D_pad
         # the working dtype: cfg.dtype, promoted to complex for a complex
-        # operator (spmv.value_dtype)
+        # operator (spmv.value_dtype); a rank builds the whole operator on
+        # the host and keeps its own shards' blocks on its device
         build = dict(dtype=cfg.dtype, d_pad=self.D_pad,
                      split_halo=cfg.spmv_overlap, rowmap=rowmap,
-                     device=self.device)
-        self.ell = build_dist_ell(matrix, self.P, **build)
+                     device="cpu" if self.ranks else self.device)
+        self.ell = build_dist_ell(matrix, self.P, **build).held_by(self.group)
         self.ell_panel = (self.ell if self.N_col == 1
-                          else build_dist_ell(matrix, self.N_row, **build))
+                          else build_dist_ell(matrix, self.N_row, **build)
+                          .held_by(self.grid.panel))
         self.dtype = self.ell.vals.dtype
         # the compressed split-phase engine contracts the halo block once
         # every round has landed (pipeline=False): with the shards on one
@@ -273,10 +299,16 @@ class FilterDiag:
             self.orthogonalize = make_svqb(self.group)
         self.gram = make_gram(self.group)
         self.to_panel, self.to_stack = make_redistribute(
-            self.group, self.N_col, cfg.redist_impl)
-        # the map's positions of the rows, and which positions hold one
+            self.group, self.N_col, cfg.redist_impl,
+            row_link=self.grid.row_link)
+        # the map's positions of the rows, and which positions hold one;
+        # the rows of the stack block held here (all in one process)
         self._pos = torch.as_tensor(rowmap.pos, device=self.device)
-        self._mask = torch.as_tensor(rowmap.valid_mask(), device=self.device)
+        R = self.ell.R
+        self._rows = slice(self.group.first * R,
+                           (self.group.first + self.group.n_loc) * R)
+        self._mask = torch.as_tensor(rowmap.valid_mask(),
+                                     device=self.device)[self._rows]
 
     def _resolve_layout(self, matrix, cfg: FDConfig, n_row: int, n_col: int,
                         rowmap):
@@ -299,7 +331,7 @@ class FilterDiag:
         touched). A [D, ...] block is in row order and is placed at the
         map's positions; a [D_pad, ...] block is in position space already
         and its pads are zeroed. When D equals D_pad, ``row_order`` says
-        which it is."""
+        which it is. On a rank the result holds its own rows only."""
         V = torch.as_tensor(np.array(V) if not isinstance(V, torch.Tensor)
                             else V).to(device=self.device, dtype=self.dtype)
         n = V.shape[0]
@@ -309,7 +341,9 @@ class FilterDiag:
         if n == self.D and (row_order or n != self.D_pad):
             out = V.new_zeros((self.D_pad,) + tuple(V.shape[1:]))
             out[self._pos] = V
-            return out
+            return out[self._rows].contiguous() if self.ranks else out
+        if self.ranks:
+            V = V[self._rows]
         mask = self._mask.view((-1,) + (1,) * (V.dim() - 1))
         return torch.where(mask, V, torch.zeros_like(V))
 
@@ -325,17 +359,25 @@ class FilterDiag:
         when ``N_col > 1``, the panel engine's (``panel``); the filter's
         depth (``sstep``), engine (``filter_engine``, ``"...+s3"`` at
         s = 3) and halo exchanges over every bundle's filter so far
-        (``filter_exchanges``)."""
-        st, pn = self.grid.stack, self.grid.panel
-        return dict(engine=self.engine, layout=self.layout.describe(),
-                    P=self.P, L=self.ell.L, bytes=dict(st.bytes),
-                    calls=dict(st.calls), sstep=self.sstep,
-                    filter_engine=(self.cheb_sstep.kind if self.sstep > 1
-                                   else self.spmv_panel.kind),
-                    filter_exchanges=self.filter_exchanges,
-                    panel=None if pn is st else dict(
-                        P=pn.P, L=self.ell_panel.L, bytes=dict(pn.bytes),
-                        calls=dict(pn.calls)))
+        (``filter_exchanges``). On ranks the counts are summed over them
+        (:meth:`counters`, one all-reduce; every rank calls it), and
+        ``ranks`` holds the world size, the backend and the bytes staged
+        through the host."""
+        c = self.counters()
+        st, pn = c["stack"], c["panel"]
+        out = dict(engine=self.engine, layout=self.layout.describe(),
+                   P=self.P, L=self.ell.L, bytes=st["bytes"],
+                   calls=st["calls"], sstep=self.sstep,
+                   filter_engine=(self.cheb_sstep.kind if self.sstep > 1
+                                  else self.spmv_panel.kind),
+                   filter_exchanges=self.filter_exchanges,
+                   panel=None if pn is None else dict(
+                       P=self.grid.panel.P, L=self.ell_panel.L, **pn))
+        if self.ranks:
+            out["ranks"] = dict(world=self.P,
+                                backend=self.group.link.backend,
+                                staged=c["staged"])
+        return out
 
     def counters(self) -> dict:
         """The solver's running counters, as JSON: the bytes and calls of
@@ -343,8 +385,30 @@ class FilterDiag:
         ``N_col = 1``) and ``filter_exchanges``. They live on the solver,
         not in :class:`FDState`, so a resumable job carries them in its
         checkpoint (``service/jobs.py``) and a resumed solve reports what
-        the uninterrupted one would."""
+        the uninterrupted one would.
+
+        On ranks (every rank calls it: one all-reduce) the bytes are
+        summed over the ranks and the calls are one shard's of each group
+        summed over the groups (a bundle's column group at the panel
+        level), which is what one process counts; ``staged`` sums the
+        bytes staged through the host. ``filter_exchanges`` is the
+        grid's, which every rank knows."""
         st, pn = self.grid.stack, self.grid.panel
+        groups = [st] if pn is st else [st, pn]
+        if self.ranks:
+            flat = [d[k] for g in groups for d in (g.bytes, g.calls)
+                    for k in COLLECTIVES]
+            flat.append(sum(ln.staged for ln in self.grid.links()))
+            flat = iter(self.group.link.all_reduce(flat))
+            summed = []
+            for g in groups:
+                b = {k: next(flat) for k in COLLECTIVES}
+                n = {k: next(flat) // g.P for k in COLLECTIVES}
+                summed.append(dict(bytes=b, calls=n))
+            return dict(stack=summed[0],
+                        panel=summed[1] if len(summed) > 1 else None,
+                        filter_exchanges=int(self.filter_exchanges),
+                        staged=next(flat))
         return dict(stack=dict(bytes=dict(st.bytes), calls=dict(st.calls)),
                     panel=None if pn is st else dict(bytes=dict(pn.bytes),
                                                      calls=dict(pn.calls)),
@@ -352,6 +416,9 @@ class FilterDiag:
 
     def set_counters(self, counters: dict) -> None:
         """Set the running counters to ``counters`` (:meth:`counters`)."""
+        if self.ranks:
+            raise NotImplementedError(f"checkpoint and resume on ranks come "
+                                      f"in {LATER}")
         groups = [(self.grid.stack, counters["stack"])]
         if counters["panel"] is not None:
             groups.append((self.grid.panel, counters["panel"]))
@@ -364,7 +431,9 @@ class FilterDiag:
     def gather_global(self, V) -> np.ndarray:
         """The rows of a padded [D_pad, ...] block in the original row
         order, [D, ...], on the host: the pads stripped and the rows
-        un-permuted (bit-exact)."""
+        un-permuted (bit-exact). On ranks ``V`` is the rank's rows, and
+        every rank gets the whole block (all of them call it)."""
+        V = self.group.gather_rows(V)
         return V.index_select(0, self._pos).cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -378,7 +447,8 @@ class FilterDiag:
         del AV
         VY = V @ Y.to(V.dtype)
         Rm = AVY - VY * theta[None, :].to(VY.dtype)
-        res = torch.sqrt(torch.sum(torch.abs(Rm) ** 2, dim=0))
+        res = torch.sqrt(self.group.allsum(torch.sum(torch.abs(Rm) ** 2,
+                                                     dim=0)))
         return theta, Y, res, VY
 
     def _intervals(self, theta, res, lam, cfg: FDConfig | None = None):
@@ -438,7 +508,8 @@ class FilterDiag:
 
     def lanczos_start(self, generator: torch.Generator) -> torch.Tensor:
         """The Lanczos start vector ``[D_pad, 1]`` :meth:`init_state`
-        draws from ``generator`` (in row order, then placed)."""
+        draws from ``generator`` (in row order, then placed; on a rank its
+        rows)."""
         return self._draw(generator, 1)
 
     def random_search_vectors(self,
@@ -454,7 +525,8 @@ class FilterDiag:
         (``[D_pad, 1]`` in position space, its pads masked)."""
         return lanczos_interval(self.spmv, self.D, self.dtype, self.device,
                                 v0=v0, steps=self.cfg.lanczos_steps,
-                                D_pad=self.D_pad, mask=self._mask)
+                                D_pad=self._mask.shape[0], mask=self._mask,
+                                group=self.group)
 
     def init_state(self, V0=None, v0=None,
                    generator: torch.Generator | None = None) -> FDState:
@@ -517,6 +589,7 @@ class FilterDiag:
         state.total_spmvs += cfg.n_search
         theta_h = theta.cpu().numpy()
         res_h = res.cpu().numpy()
+        self.group.check_agreed(theta_h, res_h, state.lam)
         target, search = self._intervals(theta_h, res_h, state.lam, cfg=cfg)
         in_t = (theta_h >= target[0]) & (theta_h <= target[1])
         conv = in_t & (res_h <= cfg.tol)
@@ -596,14 +669,15 @@ class FilterDiag:
 
     def _filter_bundles(self, Vp, mu, degree: int, lam) -> list:
         """Filter each bundle of the panel block ``Vp [N_col, D_pad, n_c]``
-        (its output becomes the bundle); a 2-D ``mu`` gives bundle j its
-        columns ``[j·n_c, (j+1)·n_c)``. Counts the exchanges."""
+        (on a rank its own bundle, ``[1, R_p, n_c]``; its output becomes
+        the bundle); a 2-D ``mu`` gives bundle j its columns
+        ``[j·n_c, (j+1)·n_c)``. Counts the grid's exchanges."""
         alpha, beta = scale_params(*lam)
         n_c = Vp.shape[-1]
         per_column = np.ndim(mu) == 2
         bundles = [self._filter(
             Vj, mu[:, j * n_c:(j + 1) * n_c] if per_column else mu,
-            alpha, beta) for j, Vj in enumerate(Vp)]
+            alpha, beta) for j, Vj in zip(self.grid.bundles, Vp)]
         self.filter_exchanges += self.exchanges_per_filter(degree) * self.N_col
         return bundles
 

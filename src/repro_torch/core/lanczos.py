@@ -15,7 +15,7 @@ __all__ = ["lanczos_interval"]
 def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
                      generator: torch.Generator | None = None,
                      steps: int = 30, safety: float = 1.05,
-                     D_pad: int | None = None, mask=None):
+                     D_pad: int | None = None, mask=None, group=None):
     """Return (lambda_l, lambda_r) enclosing spec(A).
 
     ``spmv`` acts on [D_pad, 1] tensors (``D_pad`` defaults to D; the
@@ -30,6 +30,13 @@ def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
     (complex too), as the reference draws it. The tridiagonal
     coefficients are accumulated on the host (scalars: one tiny transfer
     per step).
+
+    ``group`` (a :class:`~repro_torch.core.shards.ShardGroup`) takes the
+    whole vector's ``vdot`` and norm: on a rank, whose ``spmv``, ``v0``,
+    ``mask`` and ``D_pad`` are its own rows, each is its rows' partial
+    summed in shard order over the ranks (``allsum``, ``norm``), so every
+    rank steps through the same coefficients; in one process (or without
+    a group) each is the whole block's own op, as before.
     """
     D_pad = D if D_pad is None else int(D_pad)
     if v0 is None:
@@ -45,15 +52,17 @@ def lanczos_interval(spmv, D: int, dtype: torch.dtype, device, v0=None,
                          f"entries, got v0 {tuple(v.shape)}, mask "
                          f"{tuple(mask.shape)}")
     v = v * mask[:, None].to(v.dtype)
-    v = v / torch.linalg.norm(v)
+    allsum = (lambda t: t) if group is None else group.allsum
+    norm = torch.linalg.norm if group is None else group.norm
+    v = v / norm(v)
     alphas, betas = [], []
     v_prev = torch.zeros_like(v)
     beta = 0.0
     for _ in range(steps):
         w = spmv(v)
-        a = float(torch.vdot(v[:, 0], w[:, 0]).real)
+        a = float(allsum(torch.vdot(v[:, 0], w[:, 0])).real)
         w = w - a * v - beta * v_prev
-        b = float(torch.linalg.norm(w))
+        b = float(norm(w))
         alphas.append(a)
         betas.append(b)
         if b < 1e-12:

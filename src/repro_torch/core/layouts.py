@@ -12,7 +12,9 @@ ShardGrid` on one device (:meth:`Layout.shards`): in the stack layout the
 block is one ``[D_pad, N_s]`` tensor over ``n_row·n_col`` row shards; in a
 panel or pillar layout it is ``[n_col, D_pad, N_s/n_col]``, each bundle a
 contiguous ``[D_pad, n_c]`` tensor over ``n_row`` row shards
-(``core/redistribute.py`` moves a block between the two).
+(``core/redistribute.py`` moves a block between the two). On ranks
+(``Layout.shards(ranks=True)``, one process per shard) each rank holds
+its stack shard's rows and its own bundle's rows of its panel row-block.
 """
 from __future__ import annotations
 
@@ -51,9 +53,10 @@ class Layout:
         """All shards, ``n_row·n_col``."""
         return self.n_row * self.n_col
 
-    def shards(self, device=None) -> ShardGrid:
-        """The grid of this layout's shards on ``device``."""
-        return ShardGrid(self.n_row, self.n_col, device)
+    def shards(self, device=None, ranks: bool = False) -> ShardGrid:
+        """The grid of this layout's shards on ``device``; with ``ranks``
+        this rank's part of it, one rank a shard (``ShardGrid``)."""
+        return ShardGrid(self.n_row, self.n_col, device, ranks=ranks)
 
     def describe(self) -> str:
         return f"{self.name}({self.n_row}x{self.n_col})"

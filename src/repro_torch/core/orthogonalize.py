@@ -5,8 +5,9 @@ over the shards, log2(P) rounds of ``ppermute`` exchanging only the small
 N_s × N_s R factors (the reference's ``make_tsqr``,
 ``repro/core/orthogonalize.py:42-85``). SVQB (Stathopoulos & Wu [41]): the
 Gram matrix through one all-reduce, then a replicated eigendecomposition.
-Both run over a :class:`~repro_torch.core.shards.ShardGroup`; at P = 1
-TSQR is its local QR. The dense QR, Gram product and ``eigh`` go to
+Both run over a :class:`~repro_torch.core.shards.ShardGroup`, on the
+shards it holds (all P in one process, one on a rank, whose butterfly
+partner is another rank); at P = 1 TSQR is its local QR. The dense QR, Gram product and ``eigh`` go to
 ``torch.linalg`` / ``matmul``, as the reference leaves them to XLA.
 
 ``R`` gets a positive real diagonal (``qr_fixed``), so the basis does not
@@ -43,7 +44,8 @@ def svqb(V: torch.Tensor, eps: float = 1e-14) -> torch.Tensor:
 
 
 def make_tsqr(group: ShardGroup):
-    """``tsqr(V) -> (Q, R)`` for the stacked block ``V [P·R_loc, N_s]``.
+    """``tsqr(V) -> (Q, R)`` for the stacked block ``V [n_loc·R_loc, N_s]``
+    of the shards ``group`` holds.
 
     P must be a power of two. Each shard takes a local QR; at butterfly
     level ``l`` shard i exchanges its R with shard ``i ^ 2^l``, both stack
@@ -60,12 +62,13 @@ def make_tsqr(group: ShardGroup):
         if P == 1:
             Q, R = qr_fixed(V)
             return Q.contiguous(), R
+        held = group.held
         Q0, Rs = [], []
-        for p in range(P):
+        for p in held:
             q, r = qr_fixed(group.shard(V, p))
             Q0.append(q)
             Rs.append(r)
-        acc = [None] * P
+        acc = [None] * len(held)
         Ns = Rs[0].shape[0]
         for lvl in range(levels):
             bit = 1 << lvl
@@ -73,33 +76,33 @@ def make_tsqr(group: ShardGroup):
                                     [(i, i ^ bit) for i in range(P)],
                                     label=f"tsqr[{lvl}]")
             new_R = []
-            for p in range(P):
+            for j, p in enumerate(held):
                 lo = (p & bit) == 0
-                A = torch.cat([Rs[p], R_peer[p]] if lo else [R_peer[p], Rs[p]])
+                A = torch.cat([Rs[j], R_peer[j]] if lo else [R_peer[j], Rs[j]])
                 Qf, Rn = qr_fixed(A)
                 mine = 0 if lo else 1
                 Qblk = Qf[mine * Ns:(mine + 1) * Ns]
-                acc[p] = Qblk if acc[p] is None else acc[p] @ Qblk
+                acc[j] = Qblk if acc[j] is None else acc[j] @ Qblk
                 new_R.append(Rn)
             Rs = new_R
         Q = V.new_empty(V.shape)
-        for p in range(P):
-            torch.matmul(Q0[p], acc[p], out=group.shard(Q, p))
+        for j, p in enumerate(held):
+            torch.matmul(Q0[j], acc[j], out=group.shard(Q, p))
         return Q, Rs[0]
 
     return tsqr
 
 
 def make_gram(group: ShardGroup | None):
-    """``gram(V, W) = V^H W``: each shard's partial ``V_p^H W_p``, then one
-    all-reduce over the group (the product alone when ``group`` is None
-    or holds one shard)."""
+    """``gram(V, W) = V^H W``: each shard's partial ``V_p^H W_p`` (of the
+    shards held here), then one all-reduce over the group (the product
+    alone when ``group`` is None or has one shard)."""
     if group is None or group.P == 1:
         return gram
 
     def gram_group(V, W):
         return group.psum((gram(group.shard(V, p), group.shard(W, p))
-                           for p in range(group.P)), label="gram")
+                           for p in group.held), label="gram")
 
     return gram_group
 

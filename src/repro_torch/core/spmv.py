@@ -251,7 +251,13 @@ class DistEll:
     ``rowmap`` is the row map the operator was built on
     (``RowMap.rows``, the identity, for the equal-rows partition).
     The split-phase form and the neighbour plans are built on demand and
-    cached."""
+    cached.
+
+    The device tensors hold the shards ``[first, first + n_loc)``: all P
+    as built, the one shard of a rank after :meth:`held_by` (whose
+    ``host`` is the whole operator on the host, from which the split and
+    the neighbour plans are sliced). ``send_idx`` holds the plan rows of
+    those shards, ``[n_loc, P, L]``."""
 
     cols: torch.Tensor
     vals: torch.Tensor
@@ -269,10 +275,45 @@ class DistEll:
     vals_halo: torch.Tensor | None = None
     nbr: dict | None = None
     rowmap: RowMap | None = None
+    first: int = 0
+    host: "DistEll | None" = None
 
     @property
     def W(self) -> int:
         return int(self.cols.shape[2])
+
+    @property
+    def n_loc(self) -> int:
+        """The shards whose blocks this operator holds on its device."""
+        return int(self.cols.shape[0])
+
+    def held_by(self, group: ShardGroup) -> "DistEll":
+        """The operator of the shards ``group`` holds, on its device:
+        this one when it holds exactly those there (one process); else
+        (a rank) those shards' blocks and plan rows copied from this
+        whole operator, which stays on the host as ``host``."""
+        if group.P != self.P:
+            raise ValueError(f"{group} does not match the operator's "
+                             f"{self.P} shards")
+        if (group.first, group.n_loc, group.device) == (
+                self.first, self.n_loc, self.device):
+            return self
+        if self.n_loc != self.P:
+            raise ValueError("take a rank's shards from the whole operator")
+        sl, dev = slice(group.first, group.first + group.n_loc), group.device
+        out = DistEll(cols=self.cols[sl].to(dev), vals=self.vals[sl].to(dev),
+                      send_idx=self.send_idx[sl].to(dev), R=self.R, L=self.L,
+                      P=self.P, D=self.D, n_vc=self.n_vc,
+                      pair_counts=self.pair_counts, span=self.span,
+                      rowmap=self.rowmap, first=group.first, host=self)
+        if self.cols_loc is not None:
+            out.split()
+        return out
+
+    def _held(self, t: torch.Tensor) -> torch.Tensor:
+        """The held shards' rows of a ``[P, ...]`` tensor of ``host``, on
+        this operator's device."""
+        return t[self.first:self.first + self.n_loc].to(self.device)
 
     @property
     def D_pad(self) -> int:
@@ -298,8 +339,13 @@ class DistEll:
         """``(cols_loc, vals_loc, cols_halo, vals_halo)``: the local part
         (columns in ``[0, R)``) and the halo part (columns re-based into
         the receive buffer, ``[0, P·L)``), each row in the combined slot
-        order; cached. ``W_loc`` is at least 1."""
+        order; cached. ``W_loc`` is at least 1. A rank's operator slices
+        its shards' blocks from ``host``'s."""
         if self.cols_loc is not None:
+            return self.cols_loc, self.vals_loc, self.cols_halo, self.vals_halo
+        if self.host is not None:
+            (self.cols_loc, self.vals_loc, self.cols_halo,
+             self.vals_halo) = (self._held(t) for t in self.host.split())
             return self.cols_loc, self.vals_loc, self.cols_halo, self.vals_halo
         cols, vals = _np(self.cols), _np(self.vals)
         P, R, W = cols.shape
@@ -356,11 +402,26 @@ class DistEll:
                       schedule: str = "cyclic") -> NeighborPlan:
         """The compressed engine's schedule and re-based blocks, cached per
         scheduler; ``split_halo`` also builds the split-phase halo block and
-        the round-pipelined sub-blocks."""
+        the round-pipelined sub-blocks. A rank's operator slices its shards'
+        rows from ``host``'s plan."""
         if self.nbr is None:
             self.nbr = {}
         nplan = self.nbr.get(schedule)
         dev = self.device
+        if self.host is not None:
+            if nplan is None or (split_halo and nplan.cols_halo_nbr is None):
+                hp = self.host.neighbor_plan(split_halo, schedule)
+                nplan = NeighborPlan(
+                    perms=hp.perms, round_L=hp.round_L,
+                    send_nbr=self._held(hp.send_nbr),
+                    cols_nbr=self._held(hp.cols_nbr),
+                    cols_halo_nbr=(None if hp.cols_halo_nbr is None
+                                   else self._held(hp.cols_halo_nbr)),
+                    halo_rounds=(None if hp.halo_rounds is None else tuple(
+                        (self._held(c), self._held(v))
+                        for c, v in hp.halo_rounds)))
+                self.nbr[schedule] = nplan
+            return nplan
         if nplan is None:
             perms, round_L, off_by_pair, send_nbr = self._round_plan(schedule)
             cols_nbr = self._rebase_halo(_np(self.cols), _np(self.vals),
@@ -646,22 +707,23 @@ class _Engine:
     # -------------------------------------------------------- exchange --
 
     def _exchange_into(self, x, out, r=None):
-        """Fill ``out [P, ·, n_b]`` with the halo (all rounds, or round
-        ``r`` only)."""
+        """Fill ``out [n_loc, ·, n_b]`` with the halo (all rounds, or
+        round ``r`` only)."""
         g = self.group
         if self.comm == "a2a":
             return g.all_to_all(x, self.ell.send_idx, out=out)
-        for k in (range(len(self.rounds)) if r is None else (r,)):
-            perm, rows = self.rounds[k]
-            a = self.ends[k] if r is None else 0
-            g.gather_ppermute(x, rows, perm, key=k,
-                              out=out[:, a:a + rows.shape[1]])
+        with g.coalesced():  # on ranks: one batch of sends and receives
+            for k in (range(len(self.rounds)) if r is None else (r,)):
+                perm, rows = self.rounds[k]
+                a = self.ends[k] if r is None else 0
+                g.gather_ppermute(x, rows, perm, key=k,
+                                  out=out[:, a:a + rows.shape[1]])
         return out
 
     def exchange(self, x):
-        """The halo exchange alone: ``[P, H, n_b]`` (``H = P·L`` for the
-        a2a engine), run on the current stream."""
-        out = x.new_empty((self.ell.P, self.H, x.shape[1]))
+        """The halo exchange alone: ``[n_loc, H, n_b]`` (``H = P·L`` for
+        the a2a engine), run on the current stream."""
+        out = x.new_empty((self.ell.n_loc, self.H, x.shape[1]))
         if self.H:
             self._exchange_into(x, out)
         return out
@@ -670,19 +732,20 @@ class _Engine:
 
     def __call__(self, x, epilogue=None):
         """``A·x`` (with ``epilogue = (w1, w2, alpha, beta)``, the fused
-        step) over the stacked block ``x [P·R, n_b]``. Each shard's
-        blocks contract in the reference's order, the accumulator
+        step) over the stacked block ``x [P·R, n_b]`` (on a rank its own
+        shard's rows: P below is the shards held here, ``n_loc``). Each
+        shard's blocks contract in the reference's order, the accumulator
         threaded through them; the last block that holds entries carries
         the epilogue (an empty block adds nothing, so this is the same
         function as a launch of the empty block with it). On the card
-        with ``use_kernel`` each block is one kernel launch for all P
-        shards, each writing into its rows of the result; otherwise the
-        plain version contracts every shard at once."""
+        with ``use_kernel`` each block is one kernel launch for all the
+        shards held, each writing into its rows of the result; otherwise
+        the plain version contracts every shard at once."""
         g, ell = self.group, self.ell
-        P, R, nb = ell.P, ell.R, x.shape[1]
+        P, R, nb = ell.n_loc, ell.R, x.shape[1]
         if x.shape[0] != P * R:
             raise ValueError(f"x has {x.shape[0]} rows, the operator "
-                             f"{P} shards of {R}")
+                             f"holds {P} shards of {R}")
         kernel = self.use_kernel and x.device.type == "cuda"
         out = x.new_empty((P, R, nb)) if kernel else None
         epi = None
@@ -759,14 +822,14 @@ class _Engine:
 
 def _dia_step(ell: DistEll, group: ShardGroup):
     """The whole fused step per shard in the DIA kernel, for a comm-free
-    operator (P = 1 or L = 0) whose every shard ``ops.plan_dia`` accepts;
-    None otherwise. The step carries its per-shard plans (a list) as
+    operator (P = 1 or L = 0) whose every shard held here ``ops.plan_dia``
+    accepts (on a rank its own); None otherwise. The step carries its per-shard plans (a list) as
     ``step.dia``; it notes one contraction (``full``) in ``group``'s
     trace."""
     if not (ell.P == 1 or ell.L == 0):
         return None
     dias = [ops.plan_dia(ell.cols[p], ell.vals[p], ell.R, device=ell.device)
-            for p in range(ell.P)]
+            for p in range(ell.n_loc)]
     if any(d is None for d in dias):
         return None
     R = ell.R
@@ -793,9 +856,11 @@ def _engine(ell: DistEll, group, use_kernel, overlap, comm, schedule,
     _validate_engine(comm, schedule)
     if group is None:
         group = ShardGroup(ell.P, ell.device)
-    if group.P != ell.P or group.device != ell.device:
-        raise ValueError(f"{group} does not hold the operator's {ell.P} "
-                         f"shards on {ell.device}")
+    if (group.P, group.first, group.n_loc, group.device) != (
+            ell.P, ell.first, ell.n_loc, ell.device):
+        raise ValueError(f"{group} does not hold the operator's shards "
+                         f"{ell.first}..{ell.first + ell.n_loc - 1} of "
+                         f"{ell.P} on {ell.device}")
     return _Engine(group, ell, use_kernel=use_kernel, overlap=overlap,
                    comm=comm, schedule=schedule, pipeline=pipeline)
 
@@ -1439,6 +1504,10 @@ def make_sstep_cheb(sell: SstepEll, *, group: ShardGroup | None = None,
     _validate_engine(comm, schedule)
     if group is None:
         group = ShardGroup(sell.P, sell.device)
+    if group.link is not None:
+        from .ranks import LATER
+        raise NotImplementedError(f"the s-step filter on ranks comes in "
+                                  f"{LATER}")
     if group.P != sell.P or group.device != sell.device:
         raise ValueError(f"{group} does not hold the operator's {sell.P} "
                          f"shards on {sell.device}")

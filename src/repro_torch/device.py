@@ -21,3 +21,27 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def rank_device(device, local_rank: int, local_world: int,
+                share_card: bool = False) -> torch.device:
+    """The device of one rank of a launch: the CPU for ``"cpu"``, else the
+    card ``cuda:{local_rank}`` (made the current one).
+
+    A node with fewer cards than its ``local_world`` ranks raises unless
+    ``share_card`` says that its ranks share the cards (rank r then takes
+    card ``r mod n_cards``); no card at all raises as
+    :func:`resolve_device` does."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    resolve_device(dev)
+    n = torch.cuda.device_count()
+    if n < int(local_world) and not share_card:
+        raise RuntimeError(
+            f"{local_world} ranks on a node with {n} card(s): pass "
+            "--share-card (share_card=True) to put several ranks on one "
+            "card (gloo only), or launch one rank a card")
+    idx = int(local_rank) % n
+    torch.cuda.set_device(idx)
+    return torch.device("cuda", idx)

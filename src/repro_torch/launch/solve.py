@@ -62,6 +62,27 @@ over ``--n-row · --n-col`` shards with ``--machine`` and
 (``n_search − n_search // n_col`` on ``n_row × (n_col − 1)``, the same
 device and kernel flag) unless the failure is a kernel's or the card's.
 
+``--backend gloo|nccl`` runs the solve with one process per shard, under
+``torch.distributed.run`` (``--nproc-per-node`` equal to ``--n-row ·
+--n-col``)::
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.solve --family RoadNet \\
+      --params n=4000,w=2,m=256,k=4 --n-target 4 --n-search 16 \\
+      --target 12.94 --tol 1e-8 --n-row 4 --spmv-comm compressed \\
+      --spmv-overlap --spmv-kernel --device cpu --backend gloo
+
+Each rank holds its shard's rows and its bundle (``core/ranks.py``),
+launches the kernels on them and talks to the others through
+``torch.distributed``; rank 0 alone prints, what the one-process CLI
+prints and the world size, the backend and the bytes staged through the
+host. On a node with fewer cards than ranks ``--share-card`` puts several
+ranks on one card, which only gloo allows (NCCL refuses two ranks on one
+device); gloo stages every CUDA buffer through pinned host memory. The
+process group starts from the environment that ``torch.distributed.run``
+sets. ``--layout auto``, ``--spmv-sstep`` above 1,
+``--serve``, ``--plan-cache`` and ``--degraded-ok`` are refused on ranks.
+
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. Prints the converged count, iterations, SpMVs, the layout, the
 redistributions and the bytes the shards' collectives moved at each
@@ -198,6 +219,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "panel as extra columns, each result bit-identical "
                          "to serving it alone; planned over --n-row x "
                          "--n-col shards (--family is not needed)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="one process per shard: start this rank of a "
+                         "torch.distributed.run launch of n_row*n_col ranks "
+                         "with this process-group backend (no default: "
+                         "without it the solve runs in one process)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="with --backend gloo: let several ranks share one "
+                         "card (a node with fewer cards than ranks)")
     ap.add_argument("--degraded-ok", action="store_true",
                     help="on a failed solve, retry with one column group "
                          "fewer (n_search - n_search // n_col on n_row x "
@@ -270,7 +299,7 @@ def device_fault(e: BaseException) -> bool:
 
 
 def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
-          verbose: bool, degraded_ok: bool = False):
+          verbose: bool, degraded_ok: bool = False, ranks: bool = False):
     """Solve on an ``n_row × n_col`` grid; returns ``(solver, result)``.
     With ``degraded_ok`` (the reference's ``repro/launch/solve.py:
     120-135``) a failure that is not a kernel's or the card's
@@ -280,7 +309,7 @@ def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
     kernel flag, the row map planned anew (the shard count changed)."""
     try:
         solver = FilterDiag(mat, fd, device=device, n_row=n_row,
-                            n_col=n_col, rowmap=rowmap)
+                            n_col=n_col, rowmap=rowmap, ranks=ranks)
         return solver, solver.solve(verbose=verbose)
     except Exception as e:  # noqa: BLE001 — degraded mode retries any fault
         if not degraded_ok or n_col == 1 or device_fault(e):
@@ -340,11 +369,37 @@ def serve(args, machine, verbose: bool = True) -> dict:
     return results
 
 
+def _refuse_on_ranks(ap, args) -> None:
+    """The options a rank launch does not take yet, each refused with
+    the slice that brings it."""
+    if args.backend is None:
+        if args.share_card:
+            ap.error("--share-card needs --backend gloo (a rank launch)")
+        return
+    from ..core.ranks import LATER
+
+    for flag, on in (("--layout auto", args.layout == "auto"),
+                     ("--spmv-sstep > 1", args.spmv_sstep > 1),
+                     ("--serve", args.serve is not None),
+                     ("--plan-cache", args.plan_cache is not None),
+                     ("--degraded-ok", args.degraded_ok)):
+        if on:
+            ap.error(f"{flag} with --backend (one process per shard) comes "
+                     f"in {LATER}")
+    if args.backend == "nccl" and args.share_card:
+        ap.error("--share-card needs --backend gloo: NCCL refuses two ranks "
+                 "on one device")
+
+
 def main(argv=None, verbose: bool = True):
     """Parse ``argv``, solve, print the summary; returns the FDResult
-    (``--serve``: ``{req_id: FDResult}``)."""
+    (``--serve``: ``{req_id: FDResult}``). With ``--backend`` this
+    process is one rank of a launch; rank 0 alone prints."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    _refuse_on_ranks(ap, args)
+    if args.backend is not None:
+        return _main_on_ranks(args, verbose)
     machine = None
     if args.layout == "auto" or args.serve:
         try:
@@ -365,6 +420,35 @@ def main(argv=None, verbose: bool = True):
     solver, res = solve(mat, fd, args.device, n_row, n_col, rowmap, verbose,
                         degraded_ok=args.degraded_ok)
     wall = time.perf_counter() - t0
+    report(args, fd, solver, res, wall)
+    return res
+
+
+def _main_on_ranks(args, verbose: bool):
+    """One rank of a ``--backend`` launch: start the process group, solve
+    on this rank's shards, and on rank 0 print the summary."""
+    import torch.distributed as dist
+
+    from ..core.ranks import init_ranks
+
+    device = init_ranks(args.backend, args.device, share_card=args.share_card)
+    try:
+        lead = dist.get_rank() == 0
+        fd = config_from_args(args)
+        mat = get_family(args.family, **parse_params(args.params))
+        t0 = time.perf_counter()
+        solver, res = solve(mat, fd, device, args.n_row, args.n_col, None,
+                            verbose and lead, ranks=True)
+        wall = time.perf_counter() - t0
+        if lead:
+            report(args, fd, solver, res, wall)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def report(args, fd: FDConfig, solver, res, wall: float) -> None:
+    """Print a solve's summary (the one process's, or rank 0's)."""
     print(f"converged {res.n_converged} eigenpairs in {res.iterations} "
           f"iterations / {res.total_spmvs} SpMVs ({wall:.3f} s on "
           f"{args.device}, {solver.layout.describe()})")
@@ -378,10 +462,12 @@ def main(argv=None, verbose: bool = True):
     halo = ("all_to_all", "ppermute")
     levels = [("stack", ex)] + ([("panel", ex["panel"])] if ex["panel"]
                                 else [])
+    how = ("torch.distributed between the ranks, summed over them"
+           if solver.ranks else "device copies between the shards' rows")
     for level, e in levels:
         if e["P"] > 1:
             print(f"{level} level ({e['P']} row shards, {ex['engine']} SpMV, "
-                  f"L={e['L']}; device copies between the shards' rows): "
+                  f"L={e['L']}; {how}): "
                   "bytes " + ", ".join(f"{k}={e['bytes'][k]}"
                                        for k in halo + ("psum",)))
     if solver.N_row > 1:
@@ -389,10 +475,14 @@ def main(argv=None, verbose: bool = True):
               f"{ex['filter_exchanges']} halo exchanges in {res.iterations} "
               f"filters x {solver.N_col} bundles (depth {ex['sstep']}: "
               f"ceil(degree/{ex['sstep']}) a filter)")
+    if "ranks" in ex:
+        r = ex["ranks"]
+        print(f"ranks: {r['world']} ({r['backend']}, one process a shard, "
+              f"on {solver.device} here), {r['staged']} bytes staged "
+              "through the host")
     print("eigenvalues:", np.array2string(res.eigenvalues, precision=10))
-    print("kernel launches:", ", ".join(f"{k}={v}"
-                                        for k, v in build.launches.items()))
-    return res
+    print("kernel launches" + (" (rank 0)" if solver.ranks else "") + ":",
+          ", ".join(f"{k}={v}" for k, v in build.launches.items()))
 
 
 if __name__ == "__main__":

@@ -1199,3 +1199,103 @@ def test_op_census_of_one_epilogue_launch_is_its_bound(card):
         *on_cpu[:3], epilogue=(*on_cpu[3:], 0.3, -0.1)))
     assert c_cpu.kernels == c.kernels and c_cpu.ops == c.ops
     assert torch.equal(y.cpu(), y_cpu)
+
+
+# ------------------------------------------------- one process per shard --
+
+def _card_rank(rank: int, store: str, outdir: str) -> None:
+    """One of two gloo ranks sharing the card: one compressed split-phase
+    fused step with the kernels and one redistribution on a 1 × 2 grid,
+    each against the one-process grid on the same card."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core import (ShardGrid, ShardGroup, build_dist_ell,
+                                  make_fused_cheb_step, make_redistribute)
+    from repro_torch.core.ranks import RankLink, init_ranks
+
+    dev = init_ranks("gloo", "cuda", share_card=True,
+                     init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        mat = RoadNet(n=4000, w=2, m=256, k=4)
+        ell1 = build_dist_ell(mat, 2, device=dev)
+        host = build_dist_ell(mat, 2, device="cpu")
+        g1 = ShardGroup(2, dev)
+        gr = ShardGroup(2, dev, link=RankLink(range(2), None, dev, "gloo"))
+        kw = dict(use_kernel=True, overlap=True, comm="compressed",
+                  pipeline=False)
+        f1 = make_fused_cheb_step(ell1, group=g1, **kw)
+        fr = make_fused_cheb_step(host.held_by(gr), group=gr, **kw)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x, w2, V = (torch.randn((ell1.D_pad, 16), generator=gen, device=dev,
+                                dtype=torch.float64) for _ in range(3))
+        rows = slice(rank * ell1.R, (rank + 1) * ell1.R)
+        y1 = f1(x, w2, 0.3, -0.2)
+        build.reset_launches()
+        yr = fr(x[rows].contiguous(), w2[rows].contiguous(), 0.3, -0.2)
+        torch.cuda.synchronize()
+        out = dict(step=bool(torch.equal(y1[rows], yr)),
+                   launches=dict(build.launches), staged=gr.link.staged,
+                   counted=sum(gr.bytes.values()), L=ell1.L)
+        grid = ShardGrid(1, 2, dev, ranks=True)
+        tp1, ts1 = make_redistribute(ShardGroup(2, dev), 2, "explicit")
+        tpr, tsr = make_redistribute(grid.stack, 2, "explicit",
+                                     row_link=grid.row_link)
+        Vp1, Vpr = tp1(V), tpr(V[rows])
+        back = tsr(list(Vpr))
+        torch.cuda.synchronize()
+        out.update(to_panel=bool(torch.equal(Vp1[rank], Vpr[0])),
+                   to_stack=bool(torch.equal(back, V[rows])),
+                   redist_bytes=grid.stack.bytes["redistribute"],
+                   one_redist_bytes=ell1.D_pad * 8 * 8,
+                   redist_staged=grid.row_link.staged)
+        with open(os.path.join(outdir, f"{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_share_the_card(card, tmp_path):
+    """Two gloo ranks on the one card (``--share-card``): one split-phase
+    fused step with the kernels (one ``ell_gather`` and one
+    ``ell_gather_cheb`` launch a rank) and one redistribution are each
+    bit-equal to the one-process grid's rows; every exchanged byte is
+    staged through the host, each way, and counted."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    build.load()  # built once, so the ranks only load it
+    mp.start_processes(_card_rank, args=(str(tmp_path / "store"),
+                                         str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    got = [json.loads((tmp_path / f"{r}.json").read_text())
+           for r in range(2)]
+    for r in got:
+        assert r["L"] > 0 and r["step"] and r["to_panel"] and r["to_stack"]
+        assert r["launches"] == dict(ell_gather=1, ell_gather_cheb=1,
+                                     cheb_dia=0)
+        # a compressed round at P = 2: the rank's send, then its receive
+        assert r["staged"] == 2 * r["counted"] > 0
+        # a move stages its whole send and receive buffers (its own tile
+        # too): 2·N_col tiles against the N_col − 1 counted, N_col = 2
+        assert r["redist_staged"] == 4 * r["redist_bytes"] > 0
+    # to_panel and to_stack: N_s·D_pad·(1 − 1/N_col)·S each, summed over
+    # the ranks
+    assert sum(r["redist_bytes"] for r in got) == 2 * got[0][
+        "one_redist_bytes"]
+
+
+def test_nccl_refuses_a_shared_card(card):
+    """nccl with ``--share-card`` raises with the reason, and more ranks
+    than cards without ``--share-card`` raise."""
+    from repro_torch.core.ranks import init_ranks
+    from repro_torch.device import rank_device
+
+    with pytest.raises(ValueError, match="NCCL refuses two ranks"):
+        init_ranks("nccl", "cuda", share_card=True)
+    with pytest.raises(RuntimeError, match="--share-card"):
+        rank_device("cuda", 0, torch.cuda.device_count() + 1)
+    assert rank_device("cuda", 3, 4, share_card=True).type == "cuda"
