@@ -182,8 +182,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    solves, each first in one process on the card through the CLI, then on
    4 gloo ranks sharing the card, one ``python -m torch.distributed.run
    --standalone --nproc-per-node 4 chip_smoke.py --ranks-worker SPEC``
-   launch for all three (the kernels built before it, so the ranks only
-   load them), each rank its own shard's rows and its own bundle, every
+   launch for all (the kernels built before it, so the ranks only load
+   them; it starts before phase 7, its ranks import and make their CUDA
+   contexts there and wait idle for SPEC), each rank its own shard's
+   rows and its own bundle, every
    collective a ``torch.distributed`` call staged through pinned host
    memory (gloo, host-staged, 4 ranks on one card: not a network):
    RoadNet(48000) stack 4 × 1 with the compressed cyclic split-phase
@@ -201,7 +203,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    agree, the bytes and calls summed over the ranks equal to the one
    process's; and, first, one fused step of each rank at the
    RoadNet(48000) P = 4 shape (n_b = 64, fp64; compressed split-phase
-   and a2a) bit-equal to the one-process grouped launch's rows. One line
+   and a2a) and one s-step filter (degree 9, s = 3, compressed cyclic
+   split-phase) bit-equal to the one-process grouped launches' rows. In
+   the same launch: RoadNet(48000) stack 4 × 1 with the s = 3 filter
+   (compressed cyclic split-phase, N_s = 64, n_target 16), held as the
+   others are and, where its path is the one process's, each rank's
+   launches of every kernel equal to the one process's (one grouped
+   launch for 4 shards is one launch a rank); then the service on the 4
+   ranks: the two ``SVC_REQUESTS`` on RoadNet(48000), planned by rank 0
+   over 4 shards (the builtin ``h100-1card``) through a plan cache,
+   batched and supervised (checkpoints every ``SVC_CKPT_INTERVAL``
+   iterations written by rank 0, a fault on every rank at
+   ``SVC_FAULT_AT``), against the one-process service over 4 shards run
+   beside it: the same planned cell, one restart, each request's
+   eigenvalues to 1e-9 with its iterations and degrees equal, the host
+   residual ≤ 1e-8; then request "b" alone on the ranks with the same
+   cache: a hit, no planner call, bit-equal to "b" batched. One line
    gives each run's wall, its halo exchange ms a step, its
    redistribution ms and its staged bytes;
 8. service — the eigensolve service (``repro_torch.service``) on the
@@ -419,7 +436,11 @@ RANKS_WORLD = 4
 RANKS_STACK, RANKS_PANEL, RANKS_PILLAR = (4, 1), (2, 2), (1, 4)
 RANKS_HUBBARD_N_TARGET = 4
 RANKS_EXCHANGE_REPS = 20
-RANKS_TIMEOUT_S = 300
+RANKS_TIMEOUT_S = 420
+# how long a rank started ahead of the phase waits for its spec
+RANKS_WAIT_S = 900
+# the ranks phase's s-step check: one filter of this degree at s = SSTEP
+RANKS_SSTEP_DEGREE = 9
 # the analysis phase's census filter degree
 ANALYSIS_DEGREE = 8
 # the dryrun phase: its eigen cells (the reference's tests/test_analysis.py
@@ -2201,6 +2222,11 @@ def ranks_cases(solves: dict) -> list:
              engine=["--spmv-comm", "compressed", "--spmv-overlap"]),
         dict(rn, label="roadnet_panel", grid=RANKS_PANEL, layout="panel",
              engine=[]),
+        # the s-step filter on ranks: one depth-3 exchange of
+        # torch.distributed calls per 3 steps
+        dict(rn, label="roadnet_sstep", grid=RANKS_STACK, layout="stack",
+             engine=["--spmv-comm", "compressed", "--spmv-overlap",
+                     "--spmv-sstep", str(SSTEP)]),
         # the compressed matching rounds at the stack level (the pillar's
         # filter has no halo): at P = 4 they move 23,940 rows a shard
         # where a2a pads to 4 × 14,112, and on ranks every byte crosses
@@ -2231,12 +2257,14 @@ def ranks_argv(case: dict) -> list:
 def ranks_step_check(dev, rank: int) -> dict:
     """One fused step at the RoadNet(48000) P = 4 shape (n_b = 64, fp64),
     kernels on, through the compressed cyclic split-phase engine and the
-    a2a engine: this rank's step against the rows of the one-process
-    grouped launch on the same card, bit for bit."""
+    a2a engine, and one s-step filter (degree 9, s = 3, compressed cyclic
+    split-phase): this rank's rows against the one-process grouped
+    launches' on the same card, bit for bit."""
     import torch
 
     from repro_torch.core import (ShardGroup, build_dist_ell,
-                                  make_fused_cheb_step)
+                                  build_sstep_ell, make_fused_cheb_step,
+                                  make_sstep_cheb)
     from repro_torch.core.ranks import RankLink
     from repro_torch.matrices import RoadNet
 
@@ -2263,6 +2291,24 @@ def ranks_step_check(dev, rank: int) -> dict:
         out[name] = dict(bitwise=bool(torch.equal(y1[rows], yr)),
                          staged=gr.link.staged,
                          bytes=dict(gr.bytes), one_bytes=dict(g1.bytes))
+    # one s-step filter of degree RANKS_SSTEP_DEGREE at s = SSTEP
+    # (compressed cyclic, split phase): this rank's rows against the one
+    # process's on the same card
+    shost = build_sstep_ell(RoadNet(**ROADNET), P, SSTEP, split_halo=True,
+                            d_pad=host.D_pad, device="cpu")
+    g1 = ShardGroup(P, dev)
+    gr = ShardGroup(P, dev, link=RankLink(range(P), None, dev, "gloo"))
+    kw = dict(use_kernel=True, overlap=True, comm="compressed",
+              schedule="cyclic")
+    a1 = make_sstep_cheb(shost.held_by(g1), group=g1, **kw)
+    ar = make_sstep_cheb(shost.held_by(gr), group=gr, **kw)
+    mu = [1.0 / (k + 1) for k in range(RANKS_SSTEP_DEGREE + 1)]
+    y1 = a1(x, mu, 0.37, -0.21)
+    yr = ar(x[rows].contiguous(), mu, 0.37, -0.21)
+    torch.cuda.synchronize()
+    out[ar.kind] = dict(bitwise=bool(torch.equal(y1[rows], yr)),
+                        staged=gr.link.staged, bytes=dict(gr.bytes),
+                        one_bytes=dict(g1.bytes))
     return out
 
 
@@ -2283,12 +2329,21 @@ def ranks_worker(spec_path: str) -> int:
     from repro_torch.launch import solve as cli
     from repro_torch.matrices import get_family
 
+    # started ahead of the phase: import, load the kernels and make this
+    # process's CUDA context, then wait for the phase's spec
+    build.load()
+    torch.zeros(1, device="cuda")
+    deadline = time.perf_counter() + RANKS_WAIT_S
+    while not os.path.exists(spec_path):
+        if time.perf_counter() > deadline:
+            print(f"no spec at {spec_path} in {RANKS_WAIT_S} s", flush=True)
+            return 2
+        time.sleep(0.2)
     with open(spec_path) as f:
         spec = json.load(f)
     dev = init_ranks("gloo", "cuda", share_card=True)
     rank = dist.get_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.load()
     dist.barrier()
     t_go = time.perf_counter()
     rec = dict(rank=rank, device=str(dev), step=ranks_step_check(dev, rank),
@@ -2309,6 +2364,8 @@ def ranks_worker(spec_path: str) -> int:
         wall = time.perf_counter() - t0
         launches = dict(build.launches)
         # the halo exchange of one filter step alone, every rank at once
+        # (the s = 1 exchange of the grid; an s-step filter's are counted
+        # in its exchange summary)
         xb = torch.randn((solver.ell_panel.R * solver.grid.panel.n_loc,
                           fd.n_search // grid_[1]), device=dev,
                          dtype=solver.dtype)
@@ -2333,6 +2390,9 @@ def ranks_worker(spec_path: str) -> int:
                                  f"vectors_{label}.npy"), res.eigenvectors)
         rec["solves"][label] = r
         del solver, res
+    if spec.get("service"):
+        rec["service"] = ranks_service(spec["service"], dev, rank,
+                                       os.path.dirname(spec_path))
     rec["work_s"] = time.perf_counter() - t_go
     with open(os.path.join(os.path.dirname(spec_path),
                            f"ranks_{rank}.json"), "w") as f:
@@ -2341,14 +2401,153 @@ def ranks_worker(spec_path: str) -> int:
     return 0
 
 
-def phase_ranks(solves: dict, out_dir: str) -> dict:
-    """The phase's three solves on ``RANKS_WORLD`` gloo ranks sharing the
-    card (``python -m torch.distributed.run``, one launch for all three,
-    the kernels built beforehand so the ranks only load them), held to
-    the same three in one process on the card (through the CLI, as the
-    solves phase runs them; module docstring). The one-process solves
-    run here while the ranks start up and run theirs, so each wall is
-    taken beside the other's load."""
+def _svc_request_kw(target: float) -> dict:
+    """The service requests' common fields: the roadnet48k config's
+    matrix and N_s at the solves' target."""
+    return dict(family="RoadNet", params=ROADNET, n_search=RN_N_SEARCH,
+                target=target, tol=1e-10, max_iters=RN_MAX_ITERS)
+
+
+def _svc_record(results: dict, out_dir: str | None, tag: str) -> dict:
+    """Each request's numbers (and, with ``out_dir``, its eigenvectors
+    saved there for the host check)."""
+    import numpy as np
+
+    out = {}
+    for rid, res in sorted(results.items()):
+        out[rid] = dict(
+            iterations=res.iterations, n_converged=res.n_converged,
+            degrees=[h.get("degree") for h in res.history if "degree" in h],
+            eigenvalues=[float(t) for t in res.eigenvalues],
+            eigenvalues_hex=[float(t).hex() for t in res.eigenvalues],
+            residuals_hex=[float(r).hex() for r in res.residuals],
+            exchange=res.exchange)
+        if out_dir is not None:
+            np.save(os.path.join(out_dir, f"svc_{tag}_{rid}.npy"),
+                    res.eigenvectors)
+    return out
+
+
+def ranks_service(spec: dict, dev, rank: int, work: str) -> dict:
+    """The ranks phase's service on this rank: the requests planned by
+    rank 0 over the world's shards through a plan cache, batched and
+    supervised (checkpoints every ``SVC_CKPT_INTERVAL`` iterations, a
+    fault on every rank at ``SVC_FAULT_AT``), then request "b" alone with
+    the same cache (a hit, no planner call); the launch counts set to 0
+    just before each drain and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.runtime import SupervisorConfig
+    from repro_torch.service import EigenService, PlanCache, SolveRequest
+
+    cache = PlanCache(spec["cache"])
+    kw = _svc_request_kw(spec["target"])
+    svc = EigenService(n_shards=RANKS_WORLD, device=dev, spmv_kernel=True,
+                       plan_cache=cache, ckpt_root=spec["ckpt"],
+                       supervisor_cfg=SupervisorConfig(
+                           checkpoint_interval=SVC_CKPT_INTERVAL,
+                           max_restarts=1), ranks=True)
+    for rid, n_target, seed in SVC_REQUESTS:
+        svc.submit(SolveRequest(rid, n_target=n_target, seed=seed, **kw))
+    faults = []
+
+    def fault_hook(step):
+        if step == SVC_FAULT_AT and not faults:
+            faults.append(step)
+            raise RuntimeError(f"fault injected at iteration {step}")
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    results = svc.drain(fault_hook=fault_hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(batched=_svc_record(results, work if rank == 0 else None,
+                                   "batched"),
+               wall_s=wall, launches=dict(build.launches),
+               restarts=svc.restarts, faults=faults, cell=svc.groups[0]["cell"],
+               width=svc.groups[0]["width"])
+    first = (cache.hits, cache.misses, cache.plan_calls)
+    alone = EigenService(n_shards=RANKS_WORLD, device=dev, spmv_kernel=True,
+                         plan_cache=cache, ranks=True)
+    rid, n_target, seed = SVC_REQUESTS[1]
+    alone.submit(SolveRequest(rid, n_target=n_target, seed=seed, **kw))
+    dist.barrier()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    results = alone.drain()
+    torch.cuda.synchronize()
+    out.update(solo=_svc_record(results, None, "solo"),
+               solo_wall_s=time.perf_counter() - t0,
+               solo_launches=dict(build.launches),
+               cache_first=first,
+               cache_second=(cache.hits, cache.misses, cache.plan_calls))
+    if rank == 0:
+        print(f"[plan-cache] hits={cache.hits} misses={cache.misses} "
+              f"plan_calls={cache.plan_calls} (rank 0, after the second "
+              "drain)", flush=True)
+    return out
+
+
+class RanksLaunch:
+    """The ranks phase's ``torch.distributed.run`` launch, started ahead of
+    the phase (the kernels built, so the ranks only load them): its ranks
+    import, load the kernels and make their CUDA contexts, then wait,
+    idle, until :meth:`go` writes the phase's spec. Its output goes to a
+    file in the phase's work directory. :meth:`stop` ends every process
+    it started."""
+
+    def __init__(self, out_dir: str):
+        import shutil
+
+        self.work = os.path.join(out_dir, "ranks_phase")
+        shutil.rmtree(self.work, ignore_errors=True)
+        os.makedirs(self.work)
+        self.spec = os.path.join(self.work, "spec.json")
+        self.log_path = os.path.join(self.work, "launch.log")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(RANKS_WORLD),
+               os.path.abspath(__file__), "--ranks-worker", self.spec]
+        log("[ranks] started ahead of the phase: " + " ".join(cmd))
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self._out = open(self.log_path, "w")
+        self.proc = subprocess.Popen(cmd, stdout=self._out,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     env=env, start_new_session=True)
+
+    def go(self, spec: dict) -> None:
+        """Hand the ranks the phase's spec (written whole, then moved into
+        place)."""
+        with open(self.spec + ".tmp", "w") as f:
+            json.dump(spec, f)
+        os.replace(self.spec + ".tmp", self.spec)
+
+    def wait(self, timeout: float) -> str:
+        """Wait for the launch to end; its output."""
+        self.proc.wait(timeout=timeout)
+        self._out.close()
+        with open(self.log_path) as f:
+            return f.read()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+        self._out.close()
+
+
+def phase_ranks(solves: dict, out_dir: str,
+                launch: RanksLaunch | None = None) -> dict:
+    """The phase's solves and service on ``RANKS_WORLD`` gloo ranks sharing
+    the card (``python -m torch.distributed.run``, one launch for all,
+    started ahead of the phase when ``launch`` is given), held to the
+    same in one process on the card (through the CLI, as the solves
+    phase runs them; module docstring). The one-process solves run here
+    while the ranks run theirs, so each wall is taken beside the other's
+    load."""
     import shutil
 
     import numpy as np
@@ -2360,20 +2559,13 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
     ell_route = dict(ell_gather=True, ell_gather_cheb=True, cheb_dia=False)
     cases = ranks_cases(solves)
     t_phase = time.perf_counter()
-    work = os.path.join(out_dir, "ranks_phase")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    spec = os.path.join(work, "spec.json")
-    with open(spec, "w") as f:
-        json.dump(dict(cases=cases), f)
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(RANKS_WORLD), os.path.abspath(__file__),
-           "--ranks-worker", spec]
-    log("[ranks] " + " ".join(cmd))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, env=env,
-                            start_new_session=True)
+    launch = launch if launch is not None else RanksLaunch(out_dir)
+    work = launch.work
+    svc_spec = dict(target=solves["roadnet"]["target"],
+                    cache=os.path.join(work, "plan_cache.json"),
+                    ckpt=os.path.join(work, "service_ckpt"))
+    launch.go(dict(cases=cases, service=svc_spec))
+    proc = launch.proc
     try:
         one, host = {}, {}
         for c in cases:
@@ -2388,14 +2580,13 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
                 launched=both if c["family"] == "Hubbard" else ell_route,
                 layout=c["layout"],
                 engine=grid(c["grid"]) + tuple(c["engine"]))
+        one_svc = ranks_service_one(svc_spec["target"])
         torch.cuda.empty_cache()  # the ranks share this card
-        printed, _ = proc.communicate(timeout=RANKS_TIMEOUT_S)
+        printed = launch.wait(RANKS_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         raise SmokeFailure(f"the ranks launch passed {RANKS_TIMEOUT_S} s")
     finally:
-        if proc.poll() is None:  # stop every process the launch started
-            os.killpg(proc.pid, 9)
-            proc.communicate()
+        launch.stop()  # stop every process the launch started
     launch_s = time.perf_counter() - t_phase
     tail = "\n".join(printed.splitlines()[-40:])
     log(f"[ranks] launch exit {proc.returncode} in {launch_s:.1f} s; its "
@@ -2420,10 +2611,19 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
                     finite=bool(np.isfinite(X).all()
                                 and np.isfinite(theta).all()),
                     vectors=list(X.shape))
+    for rid, req in recs[0]["service"]["batched"].items():
+        X = np.load(os.path.join(work, f"svc_batched_{rid}.npy"))
+        theta = np.asarray(req["eigenvalues"])
+        resid = np.linalg.norm(host["RoadNet"] @ X - X * theta, axis=0)
+        req.update(host_residual_max=float(resid.max()),
+                   finite=bool(np.isfinite(X).all()
+                               and np.isfinite(theta).all()),
+                   vectors=list(X.shape))
     del host
     shutil.rmtree(work, ignore_errors=True)
     out = dict(one=one, launch_s=launch_s, step={}, runs={},
-               work_s=[r["work_s"] for r in recs])
+               work_s=[r["work_s"] for r in recs],
+               service=ranks_service_check(recs, one_svc))
     for r in recs:
         for name, s in r["step"].items():
             out["step"].setdefault(name, []).append(s["bitwise"])
@@ -2447,6 +2647,11 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
             and p["launches"][other] == 0 for p, s in zip(per, steps))
         same_path = (lead["degrees"] == ref["degrees"]
                      and lead["iterations"] == ref["iterations"])
+        if grid_[1] == 1 and same_path:
+            # a stack grid: one grouped launch for 4 shards is one launch
+            # on each rank, kernel by kernel
+            launches_ok = launches_ok and all(
+                p["launches"] == ref["launches"] for p in per)
         ex, ex1 = lead["exchange"], ref["exchange"]
         bytes_ok = (ex["bytes"] == ex1["bytes"] and ex["calls"] == ex1["calls"]
                     and (ex["panel"] is None) == (ex1["panel"] is None)
@@ -2455,6 +2660,8 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
                          == (ex1["panel"]["bytes"], ex1["panel"]["calls"])))
         run = dict(
             grid=list(grid_), wall_s=[p["wall_s"] for p in per],
+            one_launches=ref["launches"], sstep=ex["sstep"],
+            filter_exchanges=ex["filter_exchanges"],
             solve_s=[p["solve_s"] for p in per],
             one_wall_s=ref["wall_s"],
             exchange_ms_a_step=lead["exchange_ms_a_step"],
@@ -2485,7 +2692,8 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
         if not launches_ok:
             raise SmokeFailure(f"ranks {label}: launches "
                                f"{run['launches_by_rank']}, {kernel} should "
-                               f"be {steps}")
+                               f"be {steps} (one process "
+                               f"{ref['launches']})")
         if same_path and not bytes_ok:
             raise SmokeFailure(f"ranks {label}: bytes summed over the ranks "
                                f"{ex['bytes']} / panel {ex['panel']} differ "
@@ -2495,6 +2703,7 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
             log(f"[ranks {label}] degrees or iterations differ from the one "
                 "process's, so the bytes are not compared")
     out["seconds"] = time.perf_counter() - t_phase
+    sv = out["service"]
     log("[ranks] gloo, host-staged, 4 ranks on one card: not a network: "
         + "; ".join(f"{k} wall {max(v['wall_s']):.3f} s (one process "
                     f"{v['one_wall_s']:.3f} s), exchange "
@@ -2502,8 +2711,111 @@ def phase_ranks(solves: dict, out_dir: str) -> dict:
                     f"redistribution {v['redist_ms_each']:.3f} ms each, "
                     f"staged {v['staged_bytes']} B"
                     for k, v in out["runs"].items())
+        + f"; service batched {max(sv['wall_s']):.3f} s (one process "
+        f"{sv['one_wall_s']:.3f} s), b alone {max(sv['solo_wall_s']):.3f} "
+        f"s, staged {sv['staged_bytes']} B"
         + f"; the ranks' work {max(out['work_s']):.1f} s, the launch "
         f"{launch_s:.1f} s, phase {out['seconds']:.1f} s")
+    return out
+
+
+def ranks_service_one(target: float) -> dict:
+    """The one-process counterpart of the ranks' service: both requests
+    batched over ``RANKS_WORLD`` shards on the card, planned with the
+    same machine model (the builtin ``h100-1card``), unsupervised."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.service import EigenService, SolveRequest
+
+    svc = EigenService(n_shards=RANKS_WORLD, device="cuda", spmv_kernel=True)
+    kw = _svc_request_kw(target)
+    for rid, n_target, seed in SVC_REQUESTS:
+        svc.submit(SolveRequest(rid, n_target=n_target, seed=seed, **kw))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    results = svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[ranks service one] {svc.groups[0]['cell']}: wall {wall:.3f} s, "
+        f"launches {dict(build.launches)}")
+    return dict(requests=_svc_record(results, None, "one"), wall_s=wall,
+                cell=svc.groups[0]["cell"], launches=dict(build.launches))
+
+
+def ranks_service_check(recs: list, one: dict) -> dict:
+    """The ranks' service held to the one process's: the same planned
+    cell, one restart (the fault on every rank), each request's
+    eigenvalues to 1e-9 with its iterations and degrees equal, its host
+    residual ≤ 1e-8 (rank 0's eigenvectors), every rank's results alike,
+    request "b" alone bit-equal to it batched, the second drain a cache
+    hit with no planner call, and the batched drain's step kernel on
+    every rank."""
+    import numpy as np
+
+    per = [r["service"] for r in recs]
+    lead = per[0]
+    out = dict(cell=lead["cell"], one_cell=one["cell"],
+               restarts=lead["restarts"], wall_s=[p["wall_s"] for p in per],
+               solo_wall_s=[p["solo_wall_s"] for p in per],
+               one_wall_s=one["wall_s"],
+               launches_by_rank=[p["launches"] for p in per],
+               solo_launches_by_rank=[p["solo_launches"] for p in per],
+               one_launches=one["launches"],
+               cache_first=lead["cache_first"],
+               cache_second=lead["cache_second"], requests={})
+    if lead["cell"] != one["cell"]:
+        raise SmokeFailure(f"ranks service: planned {lead['cell']}, the one "
+                           f"process {one['cell']}")
+    if lead["restarts"] != 1 or lead["faults"] != [SVC_FAULT_AT]:
+        raise SmokeFailure(f"ranks service: {lead['restarts']} restarts "
+                           f"(faults {lead['faults']}), expected one")
+    first, second = tuple(lead["cache_first"]), tuple(lead["cache_second"])
+    # rank 0's cache: one miss and one planner call in the batched drain,
+    # then a hit and no further call in the second
+    if not (first[1:] == (1, 1) and second == (first[0] + 1, 1, 1)):
+        raise SmokeFailure(f"ranks service: cache (hits, misses, "
+                           f"plan_calls) {first} then {second}")
+    for rid, req in lead["batched"].items():
+        want = one["requests"][rid]
+        d = float(np.abs(np.sort(req["eigenvalues"])
+                         - np.sort(want["eigenvalues"])).max())
+        same = (req["iterations"] == want["iterations"]
+                and req["degrees"] == want["degrees"])
+        alike = all(p["batched"][rid]["eigenvalues_hex"]
+                    == req["eigenvalues_hex"] for p in per)
+        out["requests"][rid] = dict(
+            iterations=req["iterations"], one_iterations=want["iterations"],
+            max_dev_from_one=d, host_residual_max=req["host_residual_max"],
+            degrees_equal=same)
+        log(f"[ranks service {rid}] iterations {req['iterations']} (one "
+            f"process {want['iterations']}), eigenvalues max |d| {d:.3e}, "
+            f"host residual {req['host_residual_max']:.3e}")
+        if not (d <= 1e-9 and same and alike and req["finite"]
+                and req["host_residual_max"] <= 1e-8
+                and req["vectors"][1] == len(req["eigenvalues"])):
+            raise SmokeFailure(f"ranks service {rid}: max |d| {d:.3e}, "
+                               f"iterations/degrees equal {same}, ranks "
+                               f"alike {alike}, host residual "
+                               f"{req['host_residual_max']:.3e}")
+    rid = SVC_REQUESTS[1][0]
+    b, solo = lead["batched"][rid], lead["solo"][rid]
+    bitwise = {k: b[k] == solo[k] for k in ("eigenvalues_hex",
+                                           "residuals_hex", "iterations",
+                                           "degrees")}
+    out["b_alone_bitwise"] = bitwise
+    if not all(bitwise.values()):
+        raise SmokeFailure(f"ranks service: b batched differs from b "
+                           f"alone: {bitwise}")
+    if not all(p["launches"]["ell_gather"] > 0
+               and p["launches"]["ell_gather_cheb"] > 0
+               and p["launches"]["cheb_dia"] == 0 for p in per):
+        raise SmokeFailure(f"ranks service: launches {out['launches_by_rank']}")
+    # the bytes staged through the host, summed over the ranks, by the
+    # batched drain's end
+    out["staged_bytes"] = max(r["exchange"]["ranks"]["staged"]
+                              for r in lead["batched"].values())
     return out
 
 
@@ -3659,9 +3971,15 @@ def run(args) -> int:
     plan = phase_plan(layouts, fit_path)
     log(f"[plan] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    solves = phase_solves(fit_path)
-    log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
-    ranks = phase_ranks(solves, out_dir)
+    # the ranks' launch starts here: its processes import and make their
+    # CUDA contexts during the first solves, then wait idle for the phase
+    ranks_launch = RanksLaunch(out_dir)
+    try:
+        solves = phase_solves(fit_path)
+        log(f"[solve] phase {time.perf_counter() - t0:.1f} s")
+        ranks = phase_ranks(solves, out_dir, ranks_launch)
+    finally:
+        ranks_launch.stop()
     log(f"[ranks] phase {ranks['seconds']:.1f} s")
     t0 = time.perf_counter()
     plan["sstep"] = sstep_plan_case(fit_path, solves)
@@ -3693,6 +4011,10 @@ def run(args) -> int:
         for label, rr in ranks["runs"].items():  # summed over the ranks
             by_solve[f"ranks_{label}"] = sum(
                 n[k] for n in rr["launches_by_rank"])
+        for label, key in (("batched", "launches_by_rank"),
+                           ("b_alone", "solo_launches_by_rank")):
+            by_solve[f"ranks_service_{label}"] = sum(
+                n[k] for n in ranks["service"][key])
         line.append(dict(
             name=k, route="cuda", source=SOURCES[k], replaces=REPLACES[k],
             launches=sum(by_solve.values()), launches_by_solve=by_solve,

@@ -198,16 +198,19 @@ def measured(trace, P_total: int | None = None) -> list:
     """The record's collectives per device (module docstring): one
     :class:`CollectiveOp` per (kind, bytes, label, group), ``mult`` the
     executions per device over ``P_total`` devices (default: the largest
-    group's shards)."""
+    group's shards). A rank's record (one shard's share an entry, its
+    ``n_loc``) gives the same multiset as the one process's: every
+    member of a group issues each of its collectives."""
     entries = [e for e in trace.entries if e.collective]
     if P_total is None:
         P_total = max((e.P for e in entries), default=1)
     agg: dict = {}
     for e in entries:
-        if e.n_bytes % e.P:
+        n = e.n_loc or e.P
+        if e.n_bytes % n:
             raise ValueError(f"entry {e.index} ({e.label}): {e.n_bytes} B "
-                             f"do not split over {e.P} shards")
-        key = (HLO_KINDS[e.kind], e.n_bytes // e.P, e.label, e.group)
+                             f"do not split over {n} shards")
+        key = (HLO_KINDS[e.kind], e.n_bytes // n, e.label, e.group)
         agg[key] = agg.get(key, 0.0) + e.P / P_total
     return [CollectiveOp(kind=k, bytes=b, mult=m, name=lbl, computation=grp)
             for (k, b, lbl, grp), m in agg.items()]

@@ -53,6 +53,12 @@ pass (A), (B) and (a)–(c).
 On the card a proof also requires (``real_side=True``) that every entry
 of the side stream ran on a real ``torch.cuda.Stream`` other than the
 current one; on the CPU the same record runs in order.
+
+A rank's record (one process per shard, ``core/ranks.py``) is proved the
+same way: its exchange is issued inside ``start`` and lands at the
+``wait``, and the s-step filter gathers its ghosts from the receive
+buffers after that ``wait`` (a main-stream copy that reads what the
+exchange wrote, ordered by rule 3).
 """
 from __future__ import annotations
 

@@ -28,6 +28,12 @@ Restart semantics, as the reference's:
 * each restored leaf is a tensor on the device given (or its template
   leaf's device): a CUDA leaf comes back on the card with its bits.
 
+On ranks (one process per shard, ``core/ranks.py``) a
+:class:`CheckpointManager` given the launch's ``link`` writes on its first
+member alone, what every rank packed alike, then holds every rank at a
+barrier, so that no rank reads a step before it is committed; every rank
+then restores the whole step and keeps its own rows.
+
 numpy has no bfloat16, so a bfloat16 leaf is written as the reference
 writes it (through ``ml_dtypes``, which the port does without): its
 2-byte bit patterns under the ``.npy`` descr ``'<V2'``, with manifest
@@ -232,20 +238,32 @@ def restore(directory: str, template, device=None, step: int | None = None):
 
 class CheckpointManager:
     """Keep the last ``keep`` committed checkpoints, save every
-    ``interval`` steps; survives being pointed at a half-written dir."""
+    ``interval`` steps; survives being pointed at a half-written dir.
+    With ``link`` (a ``RankLink`` of the launch's ranks) its first member
+    alone writes and collects, and every member waits at a barrier after
+    each save (module docstring)."""
 
-    def __init__(self, directory: str, interval: int = 100, keep: int = 3):
+    def __init__(self, directory: str, interval: int = 100, keep: int = 3,
+                 link=None):
         self.directory = directory
         self.interval = interval
         self.keep = keep
+        self.link = link
         os.makedirs(directory, exist_ok=True)
+
+    def due(self, step: int) -> bool:
+        """Whether :meth:`maybe_save` saves at ``step``."""
+        return step % self.interval == 0
 
     def maybe_save(self, step: int, tree, specs=None, extra=None,
                    grid=None) -> bool:
-        if step % self.interval:
+        if not self.due(step):
             return False
-        save(self.directory, step, tree, specs, extra, grid)
-        self._gc()
+        if self.link is None or self.link.index == 0:
+            save(self.directory, step, tree, specs, extra, grid)
+            self._gc()
+        if self.link is not None:
+            self.link.barrier()
         return True
 
     def _gc(self) -> None:

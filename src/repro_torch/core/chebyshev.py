@@ -112,7 +112,9 @@ def chebyshev_filter_sstep(group, mu, alpha: float, beta: float,
     then groups of ``s``, the last holding the ``n mod s`` left over.
     ``Y`` is accumulated exactly as :func:`chebyshev_filter` accumulates
     it, the init ``mu0·V + mu1·T1 + mu2·T2`` then ``Y.add_(T_k,
-    alpha=mu_k)``, so the result equals the s = 1 filter bit for bit."""
+    alpha=mu_k)``, so the result equals the s = 1 filter bit for bit. On
+    a rank ``V`` and each ``T_k`` are its shard's rows only (``[R, n_b]``
+    viewed ``[1, R, n_b]``), the same code."""
     if np.ndim(mu) != 1:
         raise ValueError("the s-step filter takes a 1-D mu (a batch of "
                          "requests filters each request on its own)")

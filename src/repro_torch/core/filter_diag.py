@@ -74,12 +74,17 @@ the whole-vector reductions of Lanczos and the Ritz residuals are
 per-shard partials summed in shard order, so every rank takes the same
 branch. :meth:`FilterDiag.gather_global` gathers to every rank, and
 :meth:`FilterDiag.exchange_summary` reports the counts summed over the
-ranks. The s-step filter, ``layout="auto"`` and checkpoints
-(:meth:`FilterDiag.set_counters`) are refused on ranks.
+ranks. The s-step operator is built on the host and each rank keeps its
+shard's blocks (``SstepEll.held_by``). With ``layout="auto"`` rank 0
+alone plans and every rank runs its plan (:meth:`FilterDiag.
+_resolve_layout`); :meth:`FilterDiag.set_counters` sets each rank's share
+of checkpointed counters. ``members`` puts the solve on a sub-grid of
+the world's ranks (the degraded retry, ``launch/solve.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
@@ -92,7 +97,7 @@ from .layouts import LAYOUTS, layout_on_grid
 from .orthogonalize import make_gram, make_svqb, make_tsqr
 from .partition import PLAN_MODES, SPMV_BALANCES, SPMV_REORDERS, plan_rowmap
 from .planner import auto_axes, config_for, plan_on_grid
-from .ranks import LATER
+from .ranks import broadcast_object, is_lead
 from .redistribute import REDIST_IMPLS, make_redistribute
 from .shards import COLLECTIVES
 from .spmv import (_validate_engine, build_dist_ell, build_sstep_ell,
@@ -189,6 +194,26 @@ def _check_config(cfg: FDConfig) -> None:
                              f"{allowed})")
 
 
+def _share(total: int, n: int, i: int) -> int:
+    """Member i's part of ``total`` split over ``n`` as evenly as integers
+    split (the first ``total mod n`` take one more)."""
+    return total // n + (1 if i < total % n else 0)
+
+
+def plan_fingerprint(cfg: FDConfig, rowmap) -> np.ndarray:
+    """The bytes of a digest of the fields a plan sets (layout, engine,
+    row partition, kernel, depth) and of the row map's permutation and
+    cuts: what every rank of a solve must hold alike."""
+    h = hashlib.sha256(repr((cfg.layout, cfg.spmv_overlap, cfg.spmv_comm,
+                             cfg.spmv_schedule, cfg.spmv_balance,
+                             cfg.spmv_reorder, cfg.spmv_kernel,
+                             int(cfg.spmv_sstep), rowmap.D_pad)).encode())
+    h.update(np.ascontiguousarray(rowmap.perm, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(rowmap.boundaries,
+                                  dtype=np.int64).tobytes())
+    return np.frombuffer(h.digest(), dtype=np.uint8)
+
+
 class FilterDiag:
     """Filter diagonalization of ``matrix`` (a MatrixFamily or a CSR) on
     an ``n_row × n_col`` grid of shards on one device, the filter in the
@@ -212,19 +237,16 @@ class FilterDiag:
     """
 
     def __init__(self, matrix, cfg: FDConfig, device=None, n_row: int = 1,
-                 n_col: int = 1, rowmap=None, ranks: bool = False):
+                 n_col: int = 1, rowmap=None, ranks: bool = False,
+                 members=None):
         _check_config(cfg)
-        if ranks and (cfg.layout == "auto" or int(cfg.spmv_sstep) > 1):
-            what = ("layout='auto'" if cfg.layout == "auto"
-                    else f"spmv_sstep={cfg.spmv_sstep}")
-            raise NotImplementedError(f"{what} on ranks comes in {LATER}")
         self.plan = None
         if cfg.layout == "auto":
             cfg, rowmap = self._resolve_layout(matrix, cfg, n_row, n_col,
-                                               rowmap)
+                                               rowmap, ranks, device)
         self.cfg = cfg
         self.layout = layout_on_grid(cfg.layout, n_row, n_col)
-        self.grid = self.layout.shards(device, ranks=ranks)
+        self.grid = self.layout.shards(device, ranks=ranks, members=members)
         self.ranks = self.grid.ranks
         self.group = self.grid.stack
         self.device = self.grid.device
@@ -284,7 +306,8 @@ class FilterDiag:
             self.sell_panel = build_sstep_ell(
                 matrix, self.N_row, self.sstep, dtype=cfg.dtype,
                 d_pad=self.D_pad, split_halo=cfg.spmv_overlap,
-                rowmap=rowmap, device=self.device)
+                rowmap=rowmap, device=build["device"]).held_by(
+                    self.grid.panel)
             self.cheb_sstep = make_sstep_cheb(
                 self.sell_panel, group=self.grid.panel,
                 use_kernel=cfg.spmv_kernel, overlap=cfg.spmv_overlap,
@@ -309,17 +332,25 @@ class FilterDiag:
                            (self.group.first + self.group.n_loc) * R)
         self._mask = torch.as_tensor(rowmap.valid_mask(),
                                      device=self.device)[self._rows]
+        if self.ranks:
+            # every rank runs one plan: its config and row map agree
+            self.group.check_agreed(plan_fingerprint(cfg, rowmap))
 
     def _resolve_layout(self, matrix, cfg: FDConfig, n_row: int, n_col: int,
-                        rowmap):
+                        rowmap, ranks: bool = False, device=None):
         """``layout="auto"``: rank the layouts of the grid
         (``plan_on_grid`` on the axes of ``planner.auto_axes``) and return
         a copy of ``cfg`` set to the winner, with the row map it was
         scored on (``rowmap`` when one is given), as the reference's
-        ``_resolve_layout`` does (``repro/core/filter_diag.py:212-250``)."""
+        ``_resolve_layout`` does (``repro/core/filter_diag.py:212-250``).
+        On ranks rank 0 alone plans and the plan goes to every rank in
+        one broadcast."""
         D = matrix.shape[0] if hasattr(matrix, "shape") else matrix.D
-        self.plan = plan_on_grid(matrix, n_row, n_col,
-                                 **auto_axes(cfg, D, int(n_row) * int(n_col)))
+        plan = None
+        if not ranks or is_lead():
+            plan = plan_on_grid(matrix, n_row, n_col,
+                                **auto_axes(cfg, D, int(n_row) * int(n_col)))
+        self.plan = broadcast_object(plan, device) if ranks else plan
         best = self.plan.best
         return (config_for(cfg, best),
                 rowmap if rowmap is not None else best.rowmap)
@@ -415,18 +446,32 @@ class FilterDiag:
                     filter_exchanges=int(self.filter_exchanges))
 
     def set_counters(self, counters: dict) -> None:
-        """Set the running counters to ``counters`` (:meth:`counters`)."""
-        if self.ranks:
-            raise NotImplementedError(f"checkpoint and resume on ranks come "
-                                      f"in {LATER}")
+        """Set the running counters to ``counters`` (:meth:`counters`).
+
+        On ranks each rank takes its share, so that :meth:`counters`
+        summed over the ranks gives ``counters`` back: of a group of
+        ``P`` shards the world's ranks hold ``P·calls`` calls and the
+        bytes, each split as evenly as integers split (a stack rank's
+        calls are ``calls`` itself); the bytes staged through the host
+        (none in a one-process checkpoint) go to the stack link."""
         groups = [(self.grid.stack, counters["stack"])]
         if counters["panel"] is not None:
             groups.append((self.grid.panel, counters["panel"]))
+        world = self.grid.P
+        me = self.group.first
         for group, c in groups:
             for kind in group.bytes:
-                group.bytes[kind] = int(c["bytes"][kind])
-                group.calls[kind] = int(c["calls"][kind])
+                b, n = int(c["bytes"][kind]), int(c["calls"][kind])
+                if self.ranks:
+                    b, n = _share(b, world, me), _share(group.P * n, world,
+                                                        me)
+                group.bytes[kind], group.calls[kind] = b, n
         self.filter_exchanges = int(counters["filter_exchanges"])
+        if self.ranks:
+            for ln in self.grid.links():
+                ln.staged = 0
+            self.group.link.staged = _share(int(counters.get("staged", 0)),
+                                            world, me)
 
     def gather_global(self, V) -> np.ndarray:
         """The rows of a padded [D_pad, ...] block in the original row

@@ -53,10 +53,13 @@ class Layout:
         """All shards, ``n_row·n_col``."""
         return self.n_row * self.n_col
 
-    def shards(self, device=None, ranks: bool = False) -> ShardGrid:
+    def shards(self, device=None, ranks: bool = False,
+               members=None) -> ShardGrid:
         """The grid of this layout's shards on ``device``; with ``ranks``
-        this rank's part of it, one rank a shard (``ShardGrid``)."""
-        return ShardGrid(self.n_row, self.n_col, device, ranks=ranks)
+        this rank's part of it, one rank a shard (``ShardGrid``; over
+        ``members`` of the world when given)."""
+        return ShardGrid(self.n_row, self.n_col, device, ranks=ranks,
+                         members=members)
 
     def describe(self) -> str:
         return f"{self.name}({self.n_row}x{self.n_col})"

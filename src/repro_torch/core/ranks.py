@@ -16,7 +16,9 @@ with the same layout of its result:
 * :meth:`RankLink.all_gather` — the parts of every member in member
   order (the group's ``psum`` sums them in shard order, so every rank
   holds the one-process sum's bits);
-* :meth:`RankLink.all_reduce` — a sum of integer counters.
+* :meth:`RankLink.all_reduce` — a sum of integer counters;
+* :meth:`RankLink.barrier` — every member waits for the others (after
+  rank 0 has written a checkpoint).
 
 Every call is issued with ``async_op=True`` and comes back as a
 :class:`Flight`: its work handles, and what lands the received data in
@@ -36,10 +38,14 @@ the wire as its real view.
 :func:`init_ranks` starts the process group of a launch (``env://`` under
 ``python -m torch.distributed.run``; tests pass a ``file://`` store) and
 :func:`grid_links` builds, on every rank in the same order, the groups of
-an ``n_row × n_col`` grid: rank ``b = i·n_col + k`` holds stack shard b
-and bundle k of panel row-block i; the panel group of column k is
-``{i'·n_col + k}``, the redistribution's group the panel row
-``{i·n_col + k'}``.
+an ``n_row × n_col`` grid over the world or over a sub-grid of its
+members: member ``b = i·n_col + k`` holds stack shard b and bundle k of
+panel row-block i; the panel group of column k is ``{i'·n_col + k}``,
+the redistribution's group the panel row ``{i·n_col + k'}``. A process
+group is made once per member set (``dist.new_group`` is collective: every
+rank of the world calls it, in the same order) and kept for later grids,
+each of which gets transports of its own. :func:`broadcast_object` sends
+rank 0's host object to every rank of the world.
 """
 from __future__ import annotations
 
@@ -50,15 +56,11 @@ import torch.distributed as dist
 
 from ..device import rank_device
 
-__all__ = ["BACKENDS", "LATER", "Flight", "RankLink", "GridLinks",
-           "init_ranks", "grid_links"]
+__all__ = ["BACKENDS", "Flight", "RankLink", "GridLinks", "init_ranks",
+           "grid_links", "broadcast_object", "is_lead"]
 
 #: The process-group backends a rank launch takes, named explicitly.
 BACKENDS = ("gloo", "nccl")
-
-#: What the refusals on ranks name: the options whose rank form is not
-#: ported yet.
-LATER = "a later slice of the port (ROADMAP, Open items 1)"
 
 
 def _wire(t: torch.Tensor) -> torch.Tensor:
@@ -192,6 +194,30 @@ class RankLink:
         dist.all_reduce(t, group=self.pg)
         return [int(v) for v in t.cpu().tolist()]
 
+    def barrier(self) -> None:
+        """Wait until every member has reached this call."""
+        dist.barrier(group=self.pg)
+
+
+def is_lead() -> bool:
+    """Whether this process prints and writes for the launch: rank 0 of a
+    started process group, or the one process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def broadcast_object(obj, device=None):
+    """Rank 0's ``obj`` (a picklable host object) on every rank of the
+    world, in one ``broadcast_object_list``; ``obj`` itself in one
+    process. ``device`` is where nccl stages the pickle (this rank's
+    card)."""
+    if not dist.is_initialized():
+        return obj
+    nccl = str(dist.get_backend()) == "nccl"
+    box = [obj if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0,
+                               device=torch.device(device) if nccl else None)
+    return box[0]
+
 
 def init_ranks(backend: str, device="cuda", *, share_card: bool = False,
                init_method: str = "env://", rank: int | None = None,
@@ -234,7 +260,7 @@ def init_ranks(backend: str, device="cuda", *, share_card: bool = False,
 @dataclasses.dataclass
 class GridLinks:
     """The links of this rank on an ``n_row × n_col`` grid: ``stack`` over
-    every rank, ``panel`` over its column (None when it is ``stack``,
+    the grid's members, ``panel`` over its column (None when it is ``stack``,
     ``n_col = 1``, or holds this rank alone, ``n_row = 1``), ``row`` over
     its panel row (None at ``n_col = 1``); ``k`` its column, the bundle
     it filters."""
@@ -245,34 +271,64 @@ class GridLinks:
     k: int
 
 
-def grid_links(n_row: int, n_col: int, device: torch.device) -> GridLinks:
-    """Build the groups of the grid (module docstring) on every rank, in
-    the same order (``dist.new_group`` is collective), once; raises when
-    the world size is not ``n_row·n_col``."""
+#: The process groups made so far, by member set, and the world they
+#: were made in (a new process group starts the cache afresh).
+_GROUPS: dict = {}
+
+
+def _group_of(members: tuple):
+    """The process group of ``members`` (None: the whole world), made on
+    first use by every rank of the world and kept."""
+    world = dist.group.WORLD
+    if _GROUPS.get("world") is not world:
+        _GROUPS.clear()
+        _GROUPS["world"] = world
+    if members == tuple(range(dist.get_world_size())):
+        return None
+    if members not in _GROUPS:
+        _GROUPS[members] = dist.new_group(list(members))
+    return _GROUPS[members]
+
+
+def grid_links(n_row: int, n_col: int, device: torch.device,
+               members=None) -> GridLinks | None:
+    """Build the links of the grid (module docstring) on every rank of the
+    world, in the same order, over ``members`` (the global ranks of the
+    grid's shards in shard order; default every rank, and then the world
+    size must be ``n_row·n_col``). Every rank of the world calls it; one
+    outside ``members`` gets None."""
     if not dist.is_initialized():
         raise RuntimeError("a rank grid needs a started process group "
                            "(repro_torch.core.ranks.init_ranks)")
     P = n_row * n_col
     world = dist.get_world_size()
-    if world != P:
-        raise ValueError(f"the world has {world} ranks, the "
-                         f"{n_row}x{n_col} grid {P} shards: one rank a "
-                         "shard")
+    if members is None:
+        if world != P:
+            raise ValueError(f"the world has {world} ranks, the "
+                             f"{n_row}x{n_col} grid {P} shards: one rank "
+                             "a shard")
+        members = range(P)
+    members = tuple(int(m) for m in members)
+    if len(members) != P or len(set(members)) != P or not all(
+            0 <= m < world for m in members):
+        raise ValueError(f"the {n_row}x{n_col} grid needs {P} distinct "
+                         f"ranks of the world's {world}, got {members}")
     backend = str(dist.get_backend())
     rank = dist.get_rank()
-    i, k = divmod(rank, n_col)
-    stack = RankLink(range(P), None, device, backend)
-    panel = row = None
-    cols = [[ii * n_col + kk for ii in range(n_row)] for kk in range(n_col)]
-    rows = [[ii * n_col + kk for kk in range(n_col)] for ii in range(n_row)]
-    if n_col > 1 and n_row > 1:
-        for kk, members in enumerate(cols):
-            pg = dist.new_group(members)
-            if kk == k:
-                panel = RankLink(members, pg, device, backend)
-    if n_col > 1:
-        for ii, members in enumerate(rows):
-            pg = dist.new_group(members)
-            if ii == i:
-                row = RankLink(members, pg, device, backend)
+    cols = [tuple(members[ii * n_col + kk] for ii in range(n_row))
+            for kk in range(n_col)]
+    rows = [tuple(members[ii * n_col + kk] for kk in range(n_col))
+            for ii in range(n_row)]
+    # every rank makes the groups in this order, members or not
+    stack_pg = _group_of(members)
+    col_pgs = ([_group_of(c) for c in cols] if n_col > 1 and n_row > 1
+               else [None] * n_col)
+    row_pgs = [_group_of(r) for r in rows] if n_col > 1 else [None] * n_row
+    if rank not in members:
+        return None
+    i, k = divmod(members.index(rank), n_col)
+    stack = RankLink(members, stack_pg, device, backend)
+    panel = (RankLink(cols[k], col_pgs[k], device, backend)
+             if n_col > 1 and n_row > 1 else None)
+    row = RankLink(rows[i], row_pgs[i], device, backend) if n_col > 1 else None
     return GridLinks(stack, panel, row, k)

@@ -147,7 +147,9 @@ class CommEntry:
     ``start``/``wait`` pair, and of the exchange a ``side`` entry belongs
     to; ``reads``/``writes`` the :func:`byte_ranges` of the storages;
     ``launches`` the kernel launches of a contraction; ``real_side``
-    whether a ``side`` entry ran on a real CUDA side stream."""
+    whether a ``side`` entry ran on a real CUDA side stream; ``n_loc``
+    the shards whose share ``n_bytes`` counts (all P in one process, one
+    on a rank)."""
 
     index: int
     group: str
@@ -162,6 +164,7 @@ class CommEntry:
     writes: tuple = ()
     launches: int = 0
     real_side: bool = False
+    n_loc: int | None = None
 
     @property
     def collective(self) -> bool:
@@ -198,7 +201,7 @@ class CommTrace:
     def append(self, group: "ShardGroup", kind: str, label: str,
                **fields) -> CommEntry:
         e = CommEntry(index=len(self.entries), group=group.name, P=group.P,
-                      kind=kind, label=label, **fields)
+                      kind=kind, label=label, n_loc=group.n_loc, **fields)
         self.entries.append(e)
         return e
 
@@ -607,11 +610,13 @@ class ShardGrid:
     ``device`` this rank's): rank b holds stack shard b, and bundle k of
     panel shard i; ``panel`` is its column's group (a group of one at
     ``n_row = 1``) and ``row_link`` the transport of its panel row, over
-    which the redistribution runs (None at ``n_col = 1``). A world size
-    other than ``n_row·n_col`` raises."""
+    which the redistribution runs (None at ``n_col = 1``). ``members``
+    (the global ranks of the shards, in shard order) puts the grid on a
+    sub-grid of the world, as the degraded retry does; without it a world
+    size other than ``n_row·n_col`` raises."""
 
     def __init__(self, n_row: int, n_col: int = 1, device=None,
-                 ranks: bool = False):
+                 ranks: bool = False, members=None):
         self.n_row, self.n_col = int(n_row), int(n_col)
         if self.n_row < 1 or self.n_col < 1:
             raise ValueError(f"a grid needs n_row, n_col >= 1, got "
@@ -628,7 +633,9 @@ class ShardGrid:
         from .ranks import grid_links
 
         self.device = resolve_device(device)
-        links = grid_links(self.n_row, self.n_col, self.device)
+        links = grid_links(self.n_row, self.n_col, self.device, members)
+        if links is None:
+            raise ValueError(f"this rank is not one of {tuple(members)}")
         self.stack = ShardGroup(self.n_row * self.n_col, self.device,
                                 "stack", link=links.stack)
         self.panel = (self.stack if self.n_col == 1

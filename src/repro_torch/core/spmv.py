@@ -1015,7 +1015,12 @@ class SstepEll:
     most ghosts of a shard at depth ≤ d), ``ghost_owner`` and
     ``ghost_rank`` are host arrays. The split-phase form of step 0
     (:meth:`split`) and the neighbour plans are built on demand and
-    cached."""
+    cached.
+
+    The device tensors hold the shards ``[first, first + n_loc)``: all P
+    as built, the one shard of a rank after :meth:`held_by` (whose
+    ``host`` is the whole operator on the host, from which the split and
+    the neighbour plans are sliced), as :class:`DistEll` holds them."""
 
     steps: tuple
     send_idx: torch.Tensor
@@ -1038,6 +1043,8 @@ class SstepEll:
     vals_post: torch.Tensor | None = None
     nbr: dict | None = None
     rowmap: RowMap | None = None
+    first: int = 0
+    host: "SstepEll | None" = None
 
     @property
     def device(self) -> torch.device:
@@ -1046,6 +1053,42 @@ class SstepEll:
     @property
     def D_pad(self) -> int:
         return self.P * self.R
+
+    @property
+    def n_loc(self) -> int:
+        """The shards whose blocks this operator holds on its device."""
+        return int(self.steps[0][0].shape[0])
+
+    def held_by(self, group: ShardGroup) -> "SstepEll":
+        """The operator of the shards ``group`` holds, on its device (the
+        counterpart of :meth:`DistEll.held_by`): this one when it holds
+        exactly those there; else (a rank) those shards' step blocks,
+        ``send_idx`` rows and ghost gather copied from this whole
+        operator, which stays on the host as ``host``."""
+        if group.P != self.P:
+            raise ValueError(f"{group} does not match the operator's "
+                             f"{self.P} shards")
+        if (group.first, group.n_loc, group.device) == (
+                self.first, self.n_loc, self.device):
+            return self
+        if self.n_loc != self.P:
+            raise ValueError("take a rank's shards from the whole operator")
+        sl, dev = slice(group.first, group.first + group.n_loc), group.device
+        out = dataclasses.replace(
+            self, steps=tuple((c[sl].to(dev), v[sl].to(dev))
+                              for c, v in self.steps),
+            send_idx=self.send_idx[sl].to(dev),
+            gather_a2a=self.gather_a2a[sl].to(dev), cols_loc=None,
+            vals_loc=None, cols_post=None, vals_post=None, nbr=None,
+            first=group.first, host=self)
+        if self.cols_loc is not None:
+            out.split()
+        return out
+
+    def _held(self, t: torch.Tensor) -> torch.Tensor:
+        """The held shards' rows of a ``[P, ...]`` tensor of ``host``, on
+        this operator's device."""
+        return t[self.first:self.first + self.n_loc].to(self.device)
 
     def n_groups(self, degree: int) -> int:
         """⌈degree / s⌉ exchanges for a degree-term filter."""
@@ -1057,8 +1100,13 @@ class SstepEll:
         local entries (contracted while the exchange runs),
         ``[P, R+G, W_post]`` the rest, the owned rows' ghost entries and
         the whole ghost rows, contracted afterwards on the same
-        accumulator, so each row's summand order is unchanged; cached."""
+        accumulator, so each row's summand order is unchanged; cached. A
+        rank's operator slices its shards' blocks from ``host``'s."""
         if self.cols_loc is not None:
+            return self.cols_loc, self.vals_loc, self.cols_post, self.vals_post
+        if self.host is not None:
+            (self.cols_loc, self.vals_loc, self.cols_post,
+             self.vals_post) = (self._held(t) for t in self.host.split())
             return self.cols_loc, self.vals_loc, self.cols_post, self.vals_post
         cols, vals = _np(self.steps[0][0]), _np(self.steps[0][1])
         Pn, RG, W = cols.shape
@@ -1086,11 +1134,19 @@ class SstepEll:
 
     def neighbor_plan(self, schedule: str = "cyclic") -> SstepNeighbor:
         """The compressed engine's rounds over the depth-s pair volumes,
-        cached per scheduler."""
+        cached per scheduler. A rank's operator slices its shards' rows
+        from ``host``'s plan."""
         if self.nbr is None:
             self.nbr = {}
         plan_ = self.nbr.get(schedule)
         if plan_ is not None:
+            return plan_
+        if self.host is not None:
+            hp = self.host.neighbor_plan(schedule)
+            plan_ = SstepNeighbor(perms=hp.perms, round_L=hp.round_L,
+                                  send_nbr=self._held(hp.send_nbr),
+                                  gather=self._held(hp.gather))
+            self.nbr[schedule] = plan_
             return plan_
         if self.pair_counts is None:
             raise ValueError("compressed s-step engine needs per-pair "
@@ -1308,13 +1364,19 @@ class _SstepGroup:
     of a filter ships ``V`` (width n_b); a later one ships ``[w1 | w2]``
     (width 2·n_b) in the same collective. With ``overlap`` the exchange
     runs on the group's side stream while step 0's local prefix
-    contracts; later steps read the ghosts and cannot overlap."""
+    contracts; later steps read the ghosts and cannot overlap.
+
+    Everything here is over the shards held here (``n = sell.n_loc``):
+    all P in one process, one on a rank, whose exchange is a
+    ``torch.distributed`` call issued asynchronously under ``overlap``
+    and whose ghosts are gathered from the receive buffers once it has
+    landed (after the ``wait``)."""
 
     def __init__(self, group: ShardGroup, sell: SstepEll, *,
                  use_kernel: bool, overlap: bool, comm: str, schedule: str):
         self.group, self.sell, self.use_kernel = group, sell, use_kernel
         self.comm = comm
-        P, G = sell.P, sell.G
+        P, G, n = sell.P, sell.G, sell.n_loc
         self.has_halo = P > 1 and G > 0
         # the split-phase form needs an exchange to hide
         self.overlap = overlap and self.has_halo
@@ -1334,10 +1396,10 @@ class _SstepGroup:
         else:
             self.X = P * sell.L
             gather = sell.gather_a2a
-        # ghost j of shard p is row p·X + gather[p, j] of the stacked
-        # receive buffers
+        # ghost j of the held shard p is row p·X + gather[p, j] of the
+        # stacked receive buffers
         self.ghost_idx = (gather.to(torch.int64) + self.X * torch.arange(
-            P, device=dev, dtype=torch.int64)[:, None]).reshape(-1)
+            n, device=dev, dtype=torch.int64)[:, None]).reshape(-1)
         self.blocks = [None if (i == 0 and self.overlap)
                        else _block(c, v, use_kernel)
                        for i, (c, v) in enumerate(sell.steps)]
@@ -1347,23 +1409,33 @@ class _SstepGroup:
             self.post = _block(cp, vp, use_kernel)
         self.n_exchanged = 0  # the exchange's index in its filter (traces)
 
-    def _exchange_into(self, payload, buf, ghosts):
-        """The depth-s exchange of ``payload [P·R, W]`` into the receive
-        buffers ``buf [P, X, W]``, then each shard's ghosts into
-        ``ghosts [P·G, W]`` (both allocated by the caller)."""
+    def _exchange(self, payload, buf):
+        """The depth-s exchange of ``payload [n·R, W]`` into the receive
+        buffers ``buf [n, X, W]`` (allocated by the caller); the rounds
+        of the compressed engine in one batch on ranks."""
         g, label = self.group, f"sstep-exchange[{self.n_exchanged}]"
         if self.comm == "a2a":
             g.all_to_all(payload, self.sell.send_idx, out=buf, label=label)
-        else:
+            return
+        with g.coalesced():
             for k, (perm, rows) in enumerate(self.rounds):
                 a = self.ends[k]
                 g.gather_ppermute(payload, rows, perm, key=k,
                                   out=buf[:, a:a + rows.shape[1]],
                                   label=f"{label}.round[{k}]")
+
+    def _gather_ghosts(self, buf, ghosts):
+        """Each held shard's ghosts from the receive buffers into
+        ``ghosts [n·G, W]``."""
         torch.index_select(buf.view(-1, buf.shape[2]), 0, self.ghost_idx,
                            out=ghosts)
-        if g.trace is not None:
-            g.copy("ghost-gather", reads=(buf,), writes=(ghosts,))
+        if self.group.trace is not None:
+            self.group.copy("ghost-gather", reads=(buf,), writes=(ghosts,))
+
+    def _exchange_into(self, payload, buf, ghosts):
+        """:meth:`_exchange`, then :meth:`_gather_ghosts`."""
+        self._exchange(payload, buf)
+        self._gather_ghosts(buf, ghosts)
 
     def _contract(self, blk: _Block, x, y0, epilogue, kernel: bool, out=None,
                   label: str = "step"):
@@ -1392,13 +1464,13 @@ class _SstepGroup:
         called with each step's owned rows ``[P, R, n_b]`` in order.
         Returns the carry of the next group."""
         sell, g = self.sell, self.group
-        P, R, G = sell.P, sell.R, sell.G
+        P, R, G = sell.n_loc, sell.R, sell.G  # P: the shards held here
         a, b, alpha, beta = coeffs
         if first:
             V = carry
             if V.shape[0] != P * R:
                 raise ValueError(f"V has {V.shape[0]} rows, the operator "
-                                 f"{P} shards of {R}")
+                                 f"holds {P} shards of {R}")
             nb = V.shape[1]
             payload = V
             w1e = V.new_empty((P, R + G, nb))
@@ -1417,10 +1489,16 @@ class _SstepGroup:
         kernel = self.use_kernel and payload.device.type == "cuda"
         W = payload.shape[1]
         pend, buf, ghosts = None, None, None
+        # on ranks the exchange in flight lands at the wait: the ghosts
+        # are gathered after it
+        late_gather = self.overlap and g.link is not None
         if self.has_halo:
             buf = payload.new_empty((P, self.X, W))
             ghosts = payload.new_empty((P * G, W))
-            if self.overlap:
+            if late_gather:
+                pend = g.start(lambda: self._exchange(payload, buf),
+                               f"sstep-exchange[{self.n_exchanged}]")
+            elif self.overlap:
                 pend = g.start(lambda: self._exchange_into(payload, buf,
                                                            ghosts),
                                f"sstep-exchange[{self.n_exchanged}]")
@@ -1454,6 +1532,8 @@ class _SstepGroup:
                                           False, label="step[0].local")
             y[:, R:] = 0
             g.wait(pend)
+            if late_gather:
+                self._gather_ghosts(buf, ghosts)
             fill_ghosts()
             y = self._contract(self.post, w1e, y, epi, kernel, out=y,
                                label="step[0].halo")
@@ -1495,7 +1575,12 @@ def make_sstep_cheb(sell: SstepEll, *, group: ShardGroup | None = None,
     first step); otherwise the plain version runs. The result equals
     :func:`~repro_torch.core.chebyshev.chebyshev_filter` through the
     s = 1 engine with the same fused step bit for bit. ``apply.kind``
-    names the engine (``"...+s3"``), ``apply.group`` the shard group."""
+    names the engine (``"...+s3"``), ``apply.group`` the shard group.
+
+    On a rank (``group`` with a link, ``sell`` its :meth:`SstepEll.
+    held_by`) ``V`` is its shard's rows and so is the result, each
+    exchange a ``torch.distributed`` call; the rows are the one
+    process's bit for bit."""
     from .chebyshev import chebyshev_filter_sstep
 
     if sell.s < 2:
@@ -1504,13 +1589,11 @@ def make_sstep_cheb(sell: SstepEll, *, group: ShardGroup | None = None,
     _validate_engine(comm, schedule)
     if group is None:
         group = ShardGroup(sell.P, sell.device)
-    if group.link is not None:
-        from .ranks import LATER
-        raise NotImplementedError(f"the s-step filter on ranks comes in "
-                                  f"{LATER}")
-    if group.P != sell.P or group.device != sell.device:
-        raise ValueError(f"{group} does not hold the operator's {sell.P} "
-                         f"shards on {sell.device}")
+    if (group.P, group.first, group.n_loc, group.device) != (
+            sell.P, sell.first, sell.n_loc, sell.device):
+        raise ValueError(f"{group} does not hold the operator's shards "
+                         f"{sell.first}..{sell.first + sell.n_loc - 1} of "
+                         f"{sell.P} on {sell.device}")
     run = _SstepGroup(group, sell, use_kernel=use_kernel, overlap=overlap,
                       comm=comm, schedule=schedule)
 

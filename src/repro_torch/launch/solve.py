@@ -80,8 +80,26 @@ host. On a node with fewer cards than ranks ``--share-card`` puts several
 ranks on one card, which only gloo allows (NCCL refuses two ranks on one
 device); gloo stages every CUDA buffer through pinned host memory. The
 process group starts from the environment that ``torch.distributed.run``
-sets. ``--layout auto``, ``--spmv-sstep`` above 1,
-``--serve``, ``--plan-cache`` and ``--degraded-ok`` are refused on ranks.
+sets. Every option runs on ranks:
+
+* ``--spmv-sstep s``: each rank filters its shard's rows, one depth-s
+  exchange of ``torch.distributed`` calls per s steps;
+* ``--layout auto`` (and ``--plan-cache``): rank 0 alone plans over the
+  world's ranks and reads and writes the cache, and its plan goes to
+  every rank in one broadcast; the world must hold ``--n-row · --n-col``
+  ranks, and each runs its shard of the planned split;
+* ``--serve``: every rank reads the requests, rank 0 plans, each group
+  runs on the ranks of its planned split, checkpoints (``checkpoint_root``)
+  are written by rank 0 behind a barrier, rank 0 prints;
+* ``--degraded-ok``: when every rank raises the same failure from the
+  solve, the retry runs on the ``n_row × (n_col − 1)`` sub-grid of ranks
+  ``i·n_col + k``, ``k < n_col − 1``; the last column's ranks wait at a
+  barrier of the world and return without printing.
+
+A failure that one rank alone raises is not recovered: the other ranks
+are blocked in a collective, and the launch ends there (elastic
+restarts are not part of the port). A world size other than the grid's
+is refused, and so is ``nccl`` with ``--share-card``.
 
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given. Prints the converged count, iterations, SpMVs, the layout, the
@@ -103,6 +121,7 @@ import torch
 from ..core import FDConfig, FilterDiag
 from ..core import perf_model as pm
 from ..core.planner import auto_axes, config_for
+from ..core.ranks import is_lead
 from ..kernels import build
 from ..matrices import available_families, get_family
 from ..service import EigenService, PlanCache, SolveRequest
@@ -248,18 +267,25 @@ def config_from_args(args) -> FDConfig:
                     ortho=args.ortho)
 
 
-def plan_auto(mat, fd: FDConfig, P: int, machine, plan_cache=None):
+def plan_auto(mat, fd: FDConfig, P: int, machine, plan_cache=None,
+              ranks: bool = False, device=None):
     """``--layout auto``: rank every split of ``P`` shards
     (``plan_layout`` on the axes of ``planner.auto_axes``, as the
     reference CLI plans over its devices, ``repro/launch/solve.py:70-112``;
     behind the plan cache at ``plan_cache`` when given) and return
-    ``(fd', n_row, n_col, rowmap)`` for the best candidate."""
-    cache = PlanCache(plan_cache) if plan_cache else None
+    ``(fd', n_row, n_col, rowmap)`` for the best candidate. On ranks
+    rank 0 alone plans, touches the cache and prints; every rank gets
+    its plan."""
+    lead = is_lead()
+    cache = PlanCache(plan_cache) if plan_cache and lead else None
     t0 = time.perf_counter()
     plan, hit = cached_plan_layout(mat, P, cache=cache, machine=machine,
+                                   ranks=ranks, device=device,
                                    **auto_axes(fd, mat.D, P))
     seconds = time.perf_counter() - t0
     best = plan.best
+    if not lead:
+        return config_for(fd, best), best.n_row, best.n_col, best.rowmap
     if cache is not None:
         print(f"[plan-cache] {'hit' if hit else 'miss'} ({plan_cache}): "
               f"hits={cache.hits} misses={cache.misses} "
@@ -298,6 +324,13 @@ def device_fault(e: BaseException) -> bool:
     return False
 
 
+def degraded_members(n_row: int, n_col: int) -> tuple:
+    """The ranks of the degraded sub-grid of an ``n_row × n_col`` launch:
+    ``b = i·n_col + k`` with ``k < n_col − 1``, in the order of their new
+    shards ``i·(n_col − 1) + k``."""
+    return tuple(i * n_col + k for i in range(n_row) for k in range(n_col - 1))
+
+
 def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
           verbose: bool, degraded_ok: bool = False, ranks: bool = False):
     """Solve on an ``n_row × n_col`` grid; returns ``(solver, result)``.
@@ -306,7 +339,13 @@ def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
     (:func:`device_fault`) is printed and the solve retried with one
     column group fewer, ``n_search − n_search // n_col`` vectors on
     ``n_row × (n_col − 1)`` shards of the same device with the same
-    kernel flag, the row map planned anew (the shard count changed)."""
+    kernel flag, the row map planned anew (the shard count changed).
+
+    On ranks the retry needs every rank to have raised the failure (one
+    rank's alone ends the launch: the others are blocked in a
+    collective); it runs on the ranks of :func:`degraded_members`, and a
+    rank of the last column waits at a barrier of the world with them
+    and returns ``(None, None)``."""
     try:
         solver = FilterDiag(mat, fd, device=device, n_row=n_row,
                             n_col=n_col, rowmap=rowmap, ranks=ranks)
@@ -316,28 +355,58 @@ def solve(mat, fd: FDConfig, device, n_row: int, n_col: int, rowmap,
             raise
         fd2 = dataclasses.replace(fd, n_search=fd.n_search
                                   - fd.n_search // n_col)
-        print(f"[degraded] the solve on {n_row}x{n_col} failed "
-              f"({type(e).__name__}: {e}); retrying with n_search="
-              f"{fd2.n_search} on {n_row}x{n_col - 1}")
+        if is_lead():
+            print(f"[degraded] the solve on {n_row}x{n_col} failed "
+                  f"({type(e).__name__}: {e}); retrying with n_search="
+                  f"{fd2.n_search} on {n_row}x{n_col - 1}")
+        if ranks:
+            return _degraded_on_ranks(mat, fd2, device, n_row, n_col,
+                                      verbose)
         solver = FilterDiag(mat, fd2, device=device, n_row=n_row,
                             n_col=n_col - 1)
         return solver, solver.solve(verbose=verbose)
 
 
-def serve(args, machine, verbose: bool = True) -> dict:
+def _degraded_on_ranks(mat, fd: FDConfig, device, n_row: int, n_col: int,
+                       verbose: bool):
+    """The degraded retry on ranks (:func:`solve`): every rank reaches it
+    from the same failure, the sub-grid's groups are made by every rank
+    of the world, and the world meets at one barrier after the retry."""
+    import torch.distributed as dist
+
+    from ..core.ranks import grid_links
+
+    members = degraded_members(n_row, n_col)
+    # every rank of the world takes part in making the sub-grid's groups
+    grid_links(n_row, n_col - 1, device, members)
+    solver = res = None
+    if dist.get_rank() in members:
+        solver = FilterDiag(mat, fd, device=device, n_row=n_row,
+                            n_col=n_col - 1, ranks=True, members=members)
+        res = solver.solve(verbose=verbose)
+    dist.barrier()
+    return solver, res
+
+
+def serve(args, machine, verbose: bool = True, ranks: bool = False,
+          device=None) -> dict:
     """``--serve``: solve the requests of ``args.serve`` through the
     service over ``--n-row · --n-col`` shards on ``--device``; prints the
     plan cache's counts and each request's result and returns
-    ``{req_id: FDResult}``."""
+    ``{req_id: FDResult}``. On ranks (``device`` this rank's) every rank
+    reads the requests and gets every result; rank 0 plans, touches the
+    cache and prints."""
     with open(args.serve) as f:
         spec = json.load(f)
-    cache = PlanCache(args.plan_cache) if args.plan_cache else None
-    svc = EigenService(n_shards=args.n_row * args.n_col, device=args.device,
+    lead = is_lead()
+    cache = PlanCache(args.plan_cache) if args.plan_cache and lead else None
+    svc = EigenService(n_shards=args.n_row * args.n_col,
+                       device=device if ranks else args.device,
                        spmv_kernel=args.spmv_kernel,
                        plan_cache=cache, machine=machine,
                        ckpt_root=spec.get("checkpoint_root"),
                        service_seed=int(spec.get("service_seed", 0)),
-                       verbose=verbose)
+                       verbose=verbose and lead, ranks=ranks)
     for r in spec["requests"]:
         svc.submit(SolveRequest(
             req_id=str(r["req_id"]), family=r["family"],
@@ -351,6 +420,8 @@ def serve(args, machine, verbose: bool = True) -> dict:
     t0 = time.perf_counter()
     results = svc.drain()
     wall = time.perf_counter() - t0
+    if not lead:
+        return results
     if cache is not None:
         print(f"[plan-cache] hits={cache.hits} misses={cache.misses} "
               f"plan_calls={cache.plan_calls}")
@@ -363,29 +434,21 @@ def serve(args, machine, verbose: bool = True) -> dict:
         print(f"[{rid}] converged {r.n_converged} in {r.iterations} "
               f"iterations / {r.total_spmvs} SpMVs; eigenvalues "
               f"{np.array2string(r.eigenvalues, precision=10)}")
-    print(f"served {len(results)} requests in {wall:.3f} s on {args.device}")
-    print("kernel launches:", ", ".join(f"{k}={v}"
-                                        for k, v in build.launches.items()))
+    where = (f"{args.n_row * args.n_col} ranks" if ranks
+             else args.device)
+    print(f"served {len(results)} requests in {wall:.3f} s on {where}")
+    print("kernel launches" + (" (rank 0)" if ranks else "") + ":",
+          ", ".join(f"{k}={v}" for k, v in build.launches.items()))
     return results
 
 
 def _refuse_on_ranks(ap, args) -> None:
-    """The options a rank launch does not take yet, each refused with
-    the slice that brings it."""
+    """The flag combinations a rank launch refuses before any process
+    group starts."""
     if args.backend is None:
         if args.share_card:
             ap.error("--share-card needs --backend gloo (a rank launch)")
         return
-    from ..core.ranks import LATER
-
-    for flag, on in (("--layout auto", args.layout == "auto"),
-                     ("--spmv-sstep > 1", args.spmv_sstep > 1),
-                     ("--serve", args.serve is not None),
-                     ("--plan-cache", args.plan_cache is not None),
-                     ("--degraded-ok", args.degraded_ok)):
-        if on:
-            ap.error(f"{flag} with --backend (one process per shard) comes "
-                     f"in {LATER}")
     if args.backend == "nccl" and args.share_card:
         ap.error("--share-card needs --backend gloo: NCCL refuses two ranks "
                  "on one device")
@@ -399,13 +462,8 @@ def main(argv=None, verbose: bool = True):
     args = ap.parse_args(argv)
     _refuse_on_ranks(ap, args)
     if args.backend is not None:
-        return _main_on_ranks(args, verbose)
-    machine = None
-    if args.layout == "auto" or args.serve:
-        try:
-            machine = pm.resolve_machine(args.machine)
-        except ValueError as e:
-            ap.error(str(e))
+        return _main_on_ranks(ap, args, verbose)
+    machine = _machine(ap, args)
     if args.serve:
         return serve(args, machine, verbose=verbose)
     if not args.family:
@@ -424,9 +482,11 @@ def main(argv=None, verbose: bool = True):
     return res
 
 
-def _main_on_ranks(args, verbose: bool):
+def _main_on_ranks(ap, args, verbose: bool):
     """One rank of a ``--backend`` launch: start the process group, solve
-    on this rank's shards, and on rank 0 print the summary."""
+    (or serve) on this rank's shards, and on rank 0 print the summary. A
+    rank of the last column after a degraded retry prints nothing and
+    returns None."""
     import torch.distributed as dist
 
     from ..core.ranks import init_ranks
@@ -434,17 +494,40 @@ def _main_on_ranks(args, verbose: bool):
     device = init_ranks(args.backend, args.device, share_card=args.share_card)
     try:
         lead = dist.get_rank() == 0
+        machine = _machine(ap, args)
+        if args.serve:
+            return serve(args, machine, verbose=verbose, ranks=True,
+                         device=device)
+        if not args.family:
+            ap.error("--family is required (unless --serve is given)")
         fd = config_from_args(args)
         mat = get_family(args.family, **parse_params(args.params))
+        n_row, n_col, rowmap = args.n_row, args.n_col, None
+        if args.layout == "auto":
+            fd, n_row, n_col, rowmap = plan_auto(
+                mat, fd, n_row * n_col, machine, args.plan_cache, ranks=True,
+                device=device)
         t0 = time.perf_counter()
-        solver, res = solve(mat, fd, device, args.n_row, args.n_col, None,
-                            verbose and lead, ranks=True)
+        solver, res = solve(mat, fd, device, n_row, n_col, rowmap,
+                            verbose and lead, degraded_ok=args.degraded_ok,
+                            ranks=True)
         wall = time.perf_counter() - t0
         if lead:
-            report(args, fd, solver, res, wall)
+            report(args, solver.cfg, solver, res, wall)
         return res
     finally:
         dist.destroy_process_group()
+
+
+def _machine(ap, args):
+    """The machine model ``--layout auto`` and ``--serve`` plan with
+    (None when neither is given)."""
+    if not (args.layout == "auto" or args.serve):
+        return None
+    try:
+        return pm.resolve_machine(args.machine)
+    except ValueError as e:
+        ap.error(str(e))
 
 
 def report(args, fd: FDConfig, solver, res, wall: float) -> None:

@@ -6,6 +6,14 @@ committed checkpoint, possibly onto another grid of shards, and continue.
 :meth:`Supervisor.run` drives a plain ``step_fn`` loop;
 :meth:`Supervisor.run_job` drives a resumable job (``service/jobs.py``,
 ``service/batcher.py``), restoring each leaf onto the job's device.
+
+On ranks (one process per shard; ``link`` the launch's ``RankLink``) the
+checkpoints are written by the first rank behind a barrier
+(``checkpoint/``), and :meth:`Supervisor.run_job` restarts from a failure
+that every rank raises at the same iteration boundary: before it
+restores, every rank checks with the others (``job.agree``) that all are
+at the same step. A failure on one rank alone is not recovered: the
+others are blocked in a collective, and the launch ends there.
 """
 from __future__ import annotations
 
@@ -30,11 +38,11 @@ class Supervisor:
     """``restarts`` counts the failures recovered from (over every run)."""
 
     def __init__(self, ckpt_dir: str,
-                 cfg: SupervisorConfig = SupervisorConfig()):
+                 cfg: SupervisorConfig = SupervisorConfig(), link=None):
         self.cfg = cfg
         self.manager = CheckpointManager(
             ckpt_dir, interval=cfg.checkpoint_interval,
-            keep=cfg.keep_checkpoints)
+            keep=cfg.keep_checkpoints, link=link)
         self.timer = StepTimer()
         self.restarts = 0
 
@@ -97,7 +105,10 @@ class Supervisor:
         ignored, the previous one restored) or starts over from
         ``job.init()``. A :class:`StragglerWatchdog`, when given,
         observes every step and calls ``on_straggler(step, dt)`` on a
-        flagged one."""
+        flagged one. A job packs its state only at the steps the manager
+        saves. On ranks, ``job.agree(step)`` (a job's check that every
+        rank holds the same values) runs before every restore after a
+        failure."""
         def _restore():
             tree, _, extra = restore(self.manager.directory, job.template(),
                                      device=getattr(job, "device", None))
@@ -108,10 +119,12 @@ class Supervisor:
             log.info("resumed job at step %d", job.step_index(state))
         except FileNotFoundError:
             state = job.init()
+        agree = getattr(job, "agree", None)
         while not job.done(state):
+            at = job.step_index(state)
             try:
                 if fault_hook is not None:
-                    fault_hook(job.step_index(state))
+                    fault_hook(at)
                 self.timer.start()
                 state = job.step(state)
                 dt = self.timer.stop()
@@ -122,13 +135,16 @@ class Supervisor:
                                 watchdog.timer.ewma)
                     if on_straggler is not None:
                         on_straggler(job.step_index(state), dt)
-                tree, extra = job.pack(state)
-                self.manager.maybe_save(job.step_index(state), tree,
-                                        specs=getattr(job, "specs", None),
-                                        extra=extra,
-                                        grid=getattr(job, "grid", None))
+                if self.manager.due(job.step_index(state)):
+                    tree, extra = job.pack(state)
+                    self.manager.maybe_save(
+                        job.step_index(state), tree,
+                        specs=getattr(job, "specs", None), extra=extra,
+                        grid=getattr(job, "grid", None))
             except Exception as e:  # noqa: BLE001 — restart on any fault
                 self._failed("job step", e)
+                if agree is not None:
+                    agree(at)
                 try:
                     state = _restore()
                 except FileNotFoundError:

@@ -39,6 +39,13 @@ job does. :class:`EigenService` is the front end: submit requests,
 plan cache) over ``n_shards`` row shards on the service's device, groups
 compatible requests, and returns each request's
 :class:`~repro_torch.core.filter_diag.FDResult`.
+
+With ``ranks`` the service is one rank of a launch of ``n_shards``
+ranks (``core/ranks.py``): every rank takes the same requests in the
+same order, rank 0 alone plans each pattern and reads and writes the
+plan cache (the plan goes to every rank), each group runs on the rank
+grid of its planned split, its checkpoints written by rank 0 behind a
+barrier, and every rank gets every result.
 """
 from __future__ import annotations
 
@@ -147,8 +154,14 @@ class BatchedJob:
             for r in requests]
         self.device = fd.device
         self.grid = (fd.N_row, fd.N_col)
+        self.link = fd.group.link
         self.specs = {e.req.req_id: {"V": stack_spec(), "eigenvectors": None}
                       for e in self.entries}
+
+    def agree(self, *values) -> None:
+        """Raise unless every rank holds the same ``values`` (nothing in
+        one process)."""
+        self.fd.group.check_agreed(*values)
 
     # ---------------------------------------------------- job protocol --
     def template(self) -> dict:
@@ -280,6 +293,9 @@ class EigenService:
     After a drain, ``groups`` describes each group run (its planned cell,
     requests, block and bundle widths, restarts and wall time) and
     ``restarts`` counts the failures recovered from.
+
+    With ``ranks`` this is one rank of a launch of ``n_shards`` ranks
+    (module docstring); ``device`` is the rank's own.
     """
 
     def __init__(self, *, n_shards: int = 1, device=None,
@@ -288,8 +304,9 @@ class EigenService:
                  machine: pm.MachineModel | None = None,
                  ckpt_root: str | None = None, service_seed: int = 0,
                  supervisor_cfg: SupervisorConfig | None = None,
-                 verbose: bool = False):
+                 verbose: bool = False, ranks: bool = False):
         self.n_shards = int(n_shards)
+        self.ranks = bool(ranks)
         self.device = device
         self.spmv_kernel = bool(spmv_kernel)
         self.plan_cache = plan_cache
@@ -321,7 +338,8 @@ class EigenService:
             plan, hit = cached_plan_layout(
                 matrix, P, n_search=n_search, cache=self.plan_cache,
                 machine=self.machine, d_pad=-(-D // P) * P,
-                kernel=(self.spmv_kernel,))
+                kernel=(self.spmv_kernel,), ranks=self.ranks,
+                device=self.device)
             self.plans[pkey] = plan
             self.cache_hits += int(hit)
         return phash, self.plans[pkey]
@@ -356,14 +374,15 @@ class EigenService:
                                   seed=self.service_seed), best)
         t0 = time.perf_counter()
         fd = FilterDiag(mat, cfg, device=self.device, n_row=best.n_row,
-                        n_col=best.n_col, rowmap=best.rowmap)
+                        n_col=best.n_col, rowmap=best.rowmap,
+                        ranks=self.ranks)
         job = BatchedJob(fd, reqs, service_seed=self.service_seed,
                          verbose=self.verbose)
         restarts = 0
         if self.ckpt_root is not None:
             sup = Supervisor(os.path.join(self.ckpt_root,
                                           f"group_{group_idx:03d}"),
-                             self.supervisor_cfg)
+                             self.supervisor_cfg, link=job.link)
             states = sup.run_job(job, fault_hook=fault_hook,
                                  watchdog=StragglerWatchdog())
             restarts = sup.restarts

@@ -23,6 +23,16 @@ rebuilt from its config (matrix and plan), and ``plan_rowmap`` is
 deterministic. The extra records the map's fingerprint and
 :func:`unpack_state` refuses to resume onto another.
 
+On ranks (a solver with ``ranks``) :func:`pack_state` gathers the whole
+``V`` to every rank (``ShardGroup.gather_rows``, collective) and the
+counters summed over the ranks (``FilterDiag.counters``), so the leaves
+and the extra are the one process's: a checkpoint does not depend on how
+many processes wrote it (rank 0 alone writes it, ``checkpoint/``), and
+:func:`unpack_state` keeps each rank's rows of the restored block and its
+share of the counters (``FilterDiag.set_counters``). A rank launch
+resumes a one-process checkpoint of the same grid and row map, and the
+other way round.
+
 :class:`FilterDiagJob` is the protocol ``Supervisor.run_job`` drives:
 template / init / step / done / step_index / pack / unpack, with the
 solver's ``device`` (restored leaves go there) and ``grid``.
@@ -103,7 +113,8 @@ def _history_from_json(hist) -> list:
 
 
 def pack_state(state: FDState, fd: FilterDiag) -> tuple[dict, dict]:
-    """(tensor leaves, extra) of a state at an iteration boundary."""
+    """(tensor leaves, extra) of a state at an iteration boundary (on
+    ranks every rank calls it and gets the whole block)."""
     if state.pending is not None:
         raise ValueError("a state is checkpointed only at an iteration "
                          "boundary (a filter is pending)")
@@ -123,7 +134,7 @@ def pack_state(state: FDState, fd: FilterDiag) -> tuple[dict, dict]:
         "counters": fd.counters(),
         "rowmap": rowmap_fingerprint(fd.rowmap),
     }
-    return {"V": state.V, "eigenvectors": X}, extra
+    return {"V": fd.group.gather_rows(state.V), "eigenvectors": X}, extra
 
 
 def unpack_state(tree: dict, extra: dict, fd: FilterDiag) -> FDState:
@@ -138,6 +149,8 @@ def unpack_state(tree: dict, extra: dict, fd: FilterDiag) -> FDState:
                          f"row decomposition it was planned with")
     fd.set_counters(extra["counters"])
     V = tree["V"].to(device=fd.device, dtype=fd.dtype)
+    if fd.ranks:  # this rank's rows of the whole block
+        V = V[fd._rows].contiguous()
     return FDState(
         V=V, lam=tuple(extra["lam"]),
         iteration=int(extra["iteration"]),
@@ -168,7 +181,9 @@ class FilterDiagJob:
     init_state``, from ``V0``/``v0`` when given), ``step``
     is one outer FD iteration, ``pack``/``unpack`` bridge to
     ``checkpoint/``. Restored leaves land on the solver's device; the
-    manifest records the solver's grid."""
+    manifest records the solver's grid. On ranks ``link`` is the
+    launch's transport, for the ``Supervisor`` that drives the job, and
+    ``agree`` checks that every rank holds the same values."""
 
     def __init__(self, fd: FilterDiag, V0=None, v0=None,
                  verbose: bool = False):
@@ -177,7 +192,11 @@ class FilterDiagJob:
         self.verbose = verbose
         self.device = fd.device
         self.grid = (fd.N_row, fd.N_col)
+        self.link = fd.group.link
         self.specs = {"V": stack_spec(), "eigenvectors": None}
+
+    def agree(self, *values) -> None:
+        self.fd.group.check_agreed(*values)
 
     def template(self) -> dict:
         return state_template(self.fd)

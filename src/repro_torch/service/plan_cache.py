@@ -319,8 +319,8 @@ class PlanCache:
 def cached_plan_layout(matrix, n_devices: int, *, n_search: int,
                        cache: PlanCache | None = None,
                        machine: pm.MachineModel = pm.H100_1CARD,
-                       degree: int | None = None,
-                       **kwargs) -> tuple[Plan, bool]:
+                       degree: int | None = None, ranks: bool = False,
+                       device=None, **kwargs) -> tuple[Plan, bool]:
     """``plan_layout`` behind the cache: returns ``(plan, hit)``.
 
     On a miss the fresh plan is stored under the full key (pattern hash,
@@ -328,7 +328,21 @@ def cached_plan_layout(matrix, n_devices: int, *, n_search: int,
     ``plan_layout`` is never called — ``cache.plan_calls`` counts the
     planner invocations this wrapper made. ``kwargs`` are forwarded to
     ``plan_layout`` verbatim and folded into the key.
+
+    With ``ranks`` (every rank of a started process group calls it) rank
+    0 alone hashes the pattern, reads and writes the store and plans; its
+    ``(plan, hit)`` goes to every rank in one broadcast (``device``: this
+    rank's, where nccl stages it). The other ranks' ``cache`` is not
+    touched.
     """
+    if ranks:
+        from ..core.ranks import broadcast_object, is_lead
+
+        got = (cached_plan_layout(matrix, n_devices, n_search=n_search,
+                                  cache=cache, machine=machine,
+                                  degree=degree, **kwargs)
+               if is_lead() else None)
+        return broadcast_object(got, device)
     degree = degree if degree is not None else planner.DEFAULT_PLAN_DEGREE
     if cache is None:
         plan = planner.plan_layout(matrix, n_devices, n_search=n_search,

@@ -1288,6 +1288,76 @@ def test_two_gloo_ranks_share_the_card(card, tmp_path):
         "one_redist_bytes"]
 
 
+def _card_sstep_rank(rank: int, store: str, outdir: str) -> None:
+    """One of two gloo ranks sharing the card: a degree-5 s-step filter
+    (s = 3, compressed cyclic split-phase, the kernels on) against the
+    one-process filter on the same card, and the launches of each."""
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.core import ShardGroup, build_sstep_ell, make_sstep_cheb
+    from repro_torch.core.ranks import RankLink, init_ranks
+
+    dev = init_ranks("gloo", "cuda", share_card=True,
+                     init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        host = build_sstep_ell(RoadNet(n=4000, w=2, m=256, k=4), 2, 3,
+                               split_halo=True, device="cpu")
+        g1 = ShardGroup(2, dev)
+        gr = ShardGroup(2, dev, link=RankLink(range(2), None, dev, "gloo"))
+        kw = dict(use_kernel=True, overlap=True, comm="compressed",
+                  schedule="cyclic")
+        a1 = make_sstep_cheb(host.held_by(g1), group=g1, **kw)
+        ar = make_sstep_cheb(host.held_by(gr), group=gr, **kw)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        V = torch.randn((host.D_pad, 16), generator=gen, device=dev,
+                        dtype=torch.float64)
+        rows = slice(rank * host.R, (rank + 1) * host.R)
+        mu = [1.0, 0.5, 0.25, 0.125, 0.0625, 0.03125]
+        build.reset_launches()
+        y1 = a1(V, mu, 0.3, -0.2)
+        torch.cuda.synchronize()
+        one = dict(build.launches)
+        build.reset_launches()
+        yr = ar(V[rows].contiguous(), mu, 0.3, -0.2)
+        torch.cuda.synchronize()
+        out = dict(rows=bool(torch.equal(y1[rows], yr)), one=one,
+                   launches=dict(build.launches), staged=gr.link.staged,
+                   bytes=sum(gr.bytes.values()),
+                   one_bytes=sum(g1.bytes.values()))
+        with open(os.path.join(outdir, f"{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_run_the_sstep_filter(card, tmp_path):
+    """Two gloo ranks on the one card run a degree-5 s-step filter (s =
+    3): each rank's rows bit-equal to the one-process filter's, each
+    rank's launches of every kernel the one process's (one grouped launch
+    for both shards is one launch a rank: 3 ``ell_gather``, 4
+    ``ell_gather_cheb``), the bytes summed over the ranks its bytes."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    build.load()  # built once, so the ranks only load it
+    mp.start_processes(_card_sstep_rank, args=(str(tmp_path / "store"),
+                                               str(tmp_path)),
+                       nprocs=2, start_method="spawn")
+    got = [json.loads((tmp_path / f"{r}.json").read_text())
+           for r in range(2)]
+    for r in got:
+        assert r["rows"]
+        assert r["launches"] == r["one"] == dict(ell_gather=3,
+                                                 ell_gather_cheb=4,
+                                                 cheb_dia=0)
+        assert r["staged"] > 0
+    assert sum(r["bytes"] for r in got) == got[0]["one_bytes"] > 0
+
+
 def test_nccl_refuses_a_shared_card(card):
     """nccl with ``--share-card`` raises with the reason, and more ranks
     than cards without ``--share-card`` raise."""

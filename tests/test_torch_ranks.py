@@ -27,14 +27,35 @@ thread count, and compares its rows. The parts:
     reference's RoadNet(4000) P = 4 solve (the recipe and the one
     ``run_distributed`` subprocess of ``tests/test_torch_solve_dist.py``)
     to 1e-9;
-(i) the refusals on ranks (a world size other than the grid's, the
-    s-step filter, ``layout="auto"``, a checkpoint's counters);
+(i) the refusals that remain on ranks (a world size other than the
+    grid's, a sub-grid of the wrong size, a rank outside its sub-grid);
 (j) the split-phase proof over one rank's ``CommTrace`` of a split-phase
-    SpMV (a2a and compressed), and a planted dropped ``wait`` caught.
+    SpMV (a2a and compressed), and a planted dropped ``wait`` caught;
+(k) the s-step filter (s = 2 and 3, a2a and compressed cyclic/matching,
+    with and without overlap) on RoadNet(4000) and HubNet(4000): each
+    rank's rows bit-equal to the one-process ``make_sstep_cheb``, the
+    bytes summed over the ranks and the calls per rank the one
+    process's, the census of one rank's record the one process's, and
+    the split-phase proof over one rank's record of one group;
+(l) a stack 4×1 s = 3 solve (RoadNet(4000), compressed split-phase)
+    against the one process's (with (f));
+(m) ``--layout auto`` on Hubbard(6,3) with a plan cache: rank 0 plans,
+    every rank runs its plan, the solve against the one-process auto
+    solve, and a second plan a cache hit with no planner call;
+(n) checkpoint and resume on ranks (Hubbard(6,3) pillar 1×4): a
+    supervised solve faulted at an iteration boundary on every rank and
+    resumed, bit-equal to (f)'s uninterrupted solve with the counters
+    summed; a one-process checkpoint (rank 0 writes it) resumed on the
+    ranks; a rank-written checkpoint (copied at the fault) resumed in one
+    process here; a mismatched row map refused;
+(o) the batched service on ranks (Hubbard(6,3), two requests, a plan
+    cache, checkpoints and a fault): batched bit-equal to each request
+    alone on ranks, and against the one-process service.
 
 (h) runs the CLI under ``python -m torch.distributed.run`` (rank 0 alone
-prints, the one-process CLI's eigenvalues), and the CLI's refusals need
-no launch.
+prints, the one-process CLI's eigenvalues), (p) its ``--degraded-ok``
+with a failure planted on every rank (a launch started beside the
+spawn), and the CLI's refusals need no launch.
 """
 import os
 import subprocess
@@ -63,7 +84,19 @@ SOLVES = {
                                        spmv_overlap=True), (4, 1)),
     "panel": ("RoadNet", ROADNET, dict(layout="panel"), (2, 2)),
     "pillar": ("Hubbard", HUBBARD, dict(layout="pillar"), (1, 4)),
+    "sstep": ("RoadNet", ROADNET, dict(layout="stack", spmv_comm="compressed",
+                                       spmv_overlap=True, spmv_sstep=3),
+              (4, 1)),
 }
+# the s-step engines of (k): (comm, schedule, overlap)
+SSTEP_ENGINES = [(comm, sched, ov) for comm, sched in (
+    ("a2a", "cyclic"), ("compressed", "cyclic"), ("compressed", "matching"))
+    for ov in (False, True)]
+SSTEP_DEGREE = 7
+# (n): a checkpoint every CKPT_INTERVAL iterations, the fault at FAULT_AT
+CKPT_INTERVAL, FAULT_AT = 5, 12
+# (o): the requests (id, n_target, seed) of the service
+SVC_REQUESTS = (("a", 4, 11), ("b", 2, 22))
 
 
 # ------------------------------------------------------------ rank side --
@@ -242,7 +275,8 @@ def _summary(res) -> dict:
     return dict(eigenvalues=res.eigenvalues, iterations=res.iterations,
                 n_converged=res.n_converged, exchange=res.exchange,
                 degrees=[h.get("degree") for h in res.history],
-                vectors=res.eigenvectors.shape)
+                vectors=res.eigenvectors.shape, residuals=res.residuals,
+                total_spmvs=res.total_spmvs)
 
 
 def part_solves(rank: int, payload) -> dict:
@@ -275,17 +309,212 @@ def part_refusals(rank: int, payload) -> dict:
             out[key] = None
 
     refused("world", lambda: ShardGrid(2, 1, "cpu", ranks=True), ValueError)
-    refused("sstep", lambda: _fd("RoadNet", ROADNET, ROADNET_TARGET, WORLD,
-                                 1, True, "cpu", layout="stack",
-                                 spmv_sstep=2), NotImplementedError)
-    refused("auto", lambda: _fd("RoadNet", ROADNET, ROADNET_TARGET, WORLD, 1,
-                                True, "cpu", layout="auto"),
-            NotImplementedError)
-    fd = _fd("RoadNet", ROADNET, ROADNET_TARGET, WORLD, 1, True, "cpu",
-             layout="stack")
-    refused("checkpoint", lambda: fd.set_counters(fd.counters()),
-            NotImplementedError)
+    refused("members", lambda: ShardGrid(2, 1, "cpu", ranks=True,
+                                         members=(0, 1, 2)), ValueError)
+    # every rank makes the sub-grid's group; ranks 2 and 3 are not in it
+    refused("outside", lambda: ShardGrid(1, 2, "cpu", ranks=True,
+                                         members=(0, 1)), ValueError)
     return out
+
+
+def _trace_census(trace) -> list:
+    from repro_torch.analysis.census import measured
+
+    return sorted((c.kind, c.bytes, c.mult, c.name) for c in measured(trace))
+
+
+def part_sstep(rank: int, payload) -> dict:
+    """(k) The s-step filter on ranks against the one process's."""
+    from repro_torch.analysis.overlap_check import check_split_phase
+    from repro_torch.core import build_sstep_ell, make_sstep_cheb
+    from repro_torch.core.shards import CommTrace
+    from repro_torch.matrices import get_family
+
+    out = {}
+    mu = np.linspace(1.0, 0.2, SSTEP_DEGREE + 1)
+    for name, params in (("RoadNet", ROADNET), ("HubNet", HUBNET)):
+        mat = get_family(name, **params)
+        for s in (2, 3):
+            host = build_sstep_ell(mat, WORLD, s, split_halo=True,
+                                   device="cpu")
+            R = host.R
+            V = _block(_rng(6), host.D_pad, 2, torch.float64)
+            rows = _rows(rank, R)
+            for comm, sched, ov in SSTEP_ENGINES:
+                g1, gr = _groups()
+                kw = dict(use_kernel=True, overlap=ov, comm=comm,
+                          schedule=sched)
+                a1 = make_sstep_cheb(host, group=g1, **kw)
+                ar = make_sstep_cheb(host.held_by(gr), group=gr, **kw)
+                t1, tr = CommTrace().attach(g1), CommTrace().attach(gr)
+                Y1 = a1(V, mu, 0.3, -0.1)
+                Yr = ar(V[rows].contiguous(), mu, 0.3, -0.1)
+                census = (_trace_census(tr), _trace_census(t1))
+                counts = _counts(g1, gr)
+                # one group (a degree-s filter) on a fresh record
+                tr.clear()
+                ar(V[rows].contiguous(), np.ones(s + 1), 0.3, 0.1)
+                proof = check_split_phase(tr)
+                CommTrace.detach(gr)
+                CommTrace.detach(g1)
+                out[(name, s, ar.kind)] = dict(
+                    rows=torch.equal(Y1[rows], Yr), census=census,
+                    proof_ok=proof.ok, proof_errors=proof.errors,
+                    overlap=ov, **counts)
+    return out
+
+
+def _hubbard_fd(target, n_row, n_col, ranks, **cfg):
+    return _fd("Hubbard", HUBBARD, target, n_row, n_col, ranks, "cpu",
+               **cfg)
+
+
+def part_auto(rank: int, payload) -> dict:
+    """(m) ``--layout auto`` with a plan cache on ranks: rank 0 plans
+    (the CLI's ``plan_auto``), every rank gets its plan; a second plan
+    hits the cache; ``FilterDiag(layout="auto")`` plans on rank 0 too."""
+    from repro_torch.core import FDConfig, FilterDiag
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.filter_diag import plan_fingerprint
+    from repro_torch.launch import solve as cli
+    from repro_torch.matrices import get_family
+    from repro_torch.service import PlanCache
+    from repro_torch.service.plan_cache import cached_plan_layout
+    from repro_torch.core.planner import auto_axes
+
+    mat = get_family("Hubbard", **HUBBARD)
+    cfg = FDConfig(target=payload["targets"]["pillar"], spmv_kernel=True,
+                   layout="auto", **FD)
+    path = os.path.join(payload["tmp"], "auto_cache.json")
+    fd2, n_row, n_col, rowmap = cli.plan_auto(mat, cfg, WORLD, pm.H100_1CARD,
+                                              path, ranks=True, device="cpu")
+    cache = PlanCache(path)
+    plan, hit = cached_plan_layout(mat, WORLD, cache=cache,
+                                   machine=pm.H100_1CARD, ranks=True,
+                                   device="cpu",
+                                   **auto_axes(cfg, mat.D, WORLD))
+    solver = FilterDiag(mat, fd2, device="cpu", n_row=n_row, n_col=n_col,
+                        rowmap=rowmap, ranks=True)
+    res = solver.solve()
+    fd_auto = _hubbard_fd(cfg.target, WORLD, 1, True, layout="auto")
+    return dict(cfg=fd2, split=(n_row, n_col),
+                fingerprint=plan_fingerprint(fd2, solver.rowmap).tobytes(),
+                second=(plan.best.describe(), hit, cache.hits,
+                        cache.plan_calls),
+                layout=solver.layout.describe(),
+                fd_auto=(fd_auto.layout.describe(), fd_auto.engine,
+                         fd_auto.plan.best.describe()),
+                **_summary(res))
+
+
+def part_checkpoint(rank: int, payload) -> dict:
+    """(n) Checkpoint and resume on ranks (Hubbard(6,3) pillar 1×4)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.runtime import Supervisor, SupervisorConfig
+    from repro_torch.service.jobs import FilterDiagJob, unpack_state
+
+    tmp, target = payload["tmp"], payload["targets"]["pillar"]
+    sup_cfg = SupervisorConfig(checkpoint_interval=CKPT_INTERVAL,
+                               max_restarts=1)
+    out = {}
+    # a fault on every rank at FAULT_AT; rank 0 keeps a copy of the
+    # checkpoints at that moment for the one process to resume
+    faulted = os.path.join(tmp, "ckpt_ranks")
+    fd = _hubbard_fd(target, 1, WORLD, True, layout="pillar")
+    faults = []
+
+    def fault_hook(step):
+        if step == FAULT_AT and not faults:
+            faults.append(step)
+            if rank == 0:
+                shutil.copytree(faulted, faulted + "_at_fault")
+            raise RuntimeError(f"fault injected at iteration {step}")
+
+    sup = Supervisor(faulted, sup_cfg, link=fd.group.link)
+    state = sup.run_job(FilterDiagJob(fd), fault_hook=fault_hook)
+    out["faulted"] = dict(restarts=sup.restarts, faults=faults,
+                          **_summary(state.result))
+    # a one-process checkpoint (rank 0 writes it, faulted past a save)
+    one_dir = os.path.join(tmp, "ckpt_one")
+    if rank == 0:
+        fd1 = _hubbard_fd(target, 1, WORLD, False, layout="pillar")
+
+        def die(step):
+            if step == FAULT_AT:
+                raise RuntimeError("the one process stops here")
+
+        try:
+            Supervisor(one_dir, SupervisorConfig(
+                checkpoint_interval=CKPT_INTERVAL, max_restarts=0)).run_job(
+                FilterDiagJob(fd1), fault_hook=die)
+        except RuntimeError:
+            pass
+    dist.barrier()
+    fd = _hubbard_fd(target, 1, WORLD, True, layout="pillar")
+    sup = Supervisor(one_dir, sup_cfg, link=fd.group.link)
+    state = sup.run_job(FilterDiagJob(fd))
+    out["from_one"] = dict(restarts=sup.restarts, **_summary(state.result))
+    # a checkpoint of another row map is refused
+    job = FilterDiagJob(fd)
+    tree, _, extra = restore(one_dir, job.template(), device="cpu")
+    try:
+        unpack_state(tree, dict(extra, rowmap="0" * 16), fd)
+    except ValueError as e:
+        out["mismatch"] = str(e)
+    else:
+        out["mismatch"] = None
+    return out
+
+
+def part_service(rank: int, payload) -> dict:
+    """(o) The batched, supervised service on ranks, then each request
+    alone on ranks, through one plan cache."""
+    from repro_torch.runtime import SupervisorConfig
+    from repro_torch.service import EigenService, PlanCache
+
+    tmp = payload["tmp"]
+    cache = PlanCache(os.path.join(tmp, "svc_cache.json"))
+    svc = EigenService(n_shards=WORLD, device="cpu", spmv_kernel=True,
+                       plan_cache=cache, ckpt_root=os.path.join(tmp, "svc"),
+                       supervisor_cfg=SupervisorConfig(
+                           checkpoint_interval=CKPT_INTERVAL,
+                           max_restarts=1), ranks=True)
+    for req in _svc_requests(payload["targets"]["pillar"]):
+        svc.submit(req)
+    faults = []
+
+    def fault_hook(step):
+        if step == FAULT_AT and not faults:
+            faults.append(step)
+            raise RuntimeError(f"fault injected at iteration {step}")
+
+    batched = svc.drain(fault_hook=fault_hook)
+    out = dict(batched={k: _summary(v) for k, v in batched.items()},
+               groups=svc.groups, restarts=svc.restarts, faults=faults,
+               cell=svc.groups[0]["cell"])
+    solo = {}
+    for req in _svc_requests(payload["targets"]["pillar"]):
+        one = EigenService(n_shards=WORLD, device="cpu", spmv_kernel=True,
+                           plan_cache=cache, ranks=True)
+        one.submit(req)
+        solo.update({k: _summary(v) for k, v in one.drain().items()})
+    out.update(solo=solo, hits=cache.hits, misses=cache.misses,
+               plan_calls=cache.plan_calls)
+    return out
+
+
+def _svc_requests(target: float) -> list:
+    from repro_torch.service import SolveRequest
+
+    return [SolveRequest(rid, family="Hubbard", params=HUBBARD,
+                         n_target=n_t, n_search=FD["n_search"],
+                         target=target, tol=FD["tol"],
+                         max_iters=FD["max_iters"], seed=seed)
+            for rid, n_t, seed in SVC_REQUESTS]
 
 
 def part_proof(rank: int, payload) -> dict:
@@ -319,7 +548,34 @@ PARTS = dict(collectives=part_collectives, engines=part_engines,
              dense=part_dense, redistribute=part_redistribute,
              lanczos=part_lanczos, solves=part_solves,
              reference=part_reference, refusals=part_refusals,
-             proof=part_proof)
+             proof=part_proof, sstep=part_sstep, auto=part_auto,
+             checkpoint=part_checkpoint, service=part_service)
+
+
+def _one_process(targets: dict) -> dict:
+    """The one-process counterparts of (m), (o) and (p), solved here."""
+    from repro_torch.core import FDConfig, FilterDiag
+    from repro_torch.core import perf_model as pm
+    from repro_torch.launch import solve as cli
+    from repro_torch.matrices import get_family
+    from repro_torch.service import EigenService
+
+    mat = get_family("Hubbard", **HUBBARD)
+    cfg = FDConfig(target=targets["pillar"], spmv_kernel=True, layout="auto",
+                   **FD)
+    fd2, n_row, n_col, rowmap = cli.plan_auto(mat, cfg, WORLD, pm.H100_1CARD)
+    auto = _summary(FilterDiag(mat, fd2, device="cpu", n_row=n_row,
+                               n_col=n_col, rowmap=rowmap).solve())
+    auto.update(cfg=fd2, split=(n_row, n_col))
+    svc = EigenService(n_shards=WORLD, device="cpu", spmv_kernel=True)
+    for req in _svc_requests(targets["pillar"]):
+        svc.submit(req)
+    service = dict(results={k: _summary(v) for k, v in svc.drain().items()},
+                   cell=svc.groups[0]["cell"])
+    # the degraded retry of (p): n_search 32 -> 16 on the 2x1 sub-grid
+    degraded = _summary(_hubbard_fd(targets["pillar"], 2, 1, False,
+                                    layout="panel", n_search=16).solve())
+    return dict(auto=auto, service=service, degraded=degraded)
 
 
 def _child(rank: int, store: str, outdir: str, payload) -> None:
@@ -378,7 +634,7 @@ def _targets() -> dict:
     w = np.linalg.eigvalsh(get_family("Hubbard", **HUBBARD)
                            .build_csr().to_dense())
     return dict(stack=ROADNET_TARGET, panel=ROADNET_TARGET,
-                pillar=float(w[0]) - 0.1)
+                pillar=float(w[0]) - 0.1, sstep=ROADNET_TARGET)
 
 
 @pytest.fixture(scope="module")
@@ -408,9 +664,10 @@ def run(tmp_path_factory):
     draws = dict(v0=np.asarray(jax.random.normal(k0, (D, 1))),
                  V0=np.asarray(jax.random.normal(k1, (D, FD["n_search"]))))
     targets = _targets()
-    payload = dict(targets=targets, draws=draws)
+    payload = dict(targets=targets, draws=draws, tmp=str(tmp))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    degraded = _launch_degraded(tmp, targets["pillar"])
     try:
         ctx = mp.start_processes(_child, args=(str(tmp / "store"), str(tmp),
                                                payload),
@@ -424,9 +681,16 @@ def run(tmp_path_factory):
             fd = _fd(fam, params, targets[name], n_row, n_col, False, "cpu",
                      **cfg)
             one[name] = _summary(fd.solve())
+        one.update(_one_process(targets))
         while not ctx.join():
             pass
+        one["resumed_here"] = _resume_here(tmp, targets["pillar"])
+        one["degraded_launch"] = degraded.communicate(timeout=600)
+        one["degraded_rc"] = degraded.returncode
     finally:
+        if degraded.poll() is None:
+            degraded.kill()
+            degraded.communicate()
         torch.set_num_threads(threads)
         ref_run.join()
     ref = dict(np.load(path))
@@ -435,6 +699,69 @@ def run(tmp_path_factory):
     ranks = [torch.load(tmp / f"{r}.pt", weights_only=False)
              for r in range(WORLD)]
     return ranks, one, ref
+
+
+def _resume_here(tmp, target: float) -> dict:
+    """(n) The ranks' checkpoints as they stood at the fault, resumed in
+    one process."""
+    from repro_torch.runtime import Supervisor, SupervisorConfig
+    from repro_torch.service.jobs import FilterDiagJob
+
+    from repro_torch.checkpoint import latest_step
+
+    fd = _hubbard_fd(target, 1, WORLD, False, layout="pillar")
+    path = str(tmp / "ckpt_ranks_at_fault")
+    at = latest_step(path)
+    sup = Supervisor(path, SupervisorConfig(checkpoint_interval=CKPT_INTERVAL))
+    state = sup.run_job(FilterDiagJob(fd))
+    return dict(resumed_at=at, **_summary(state.result))
+
+
+DEGRADED_SCRIPT = r"""
+import sys
+from repro_torch.core import FilterDiag
+from repro_torch.launch import solve as cli
+real, seen = FilterDiag.solve, []
+def flaky(self, *a, **kw):  # the planted failure, on every rank
+    seen.append(self.N_col)
+    if len(seen) == 1:
+        raise RuntimeError("lost a column group")
+    return real(self, *a, **kw)
+FilterDiag.solve = flaky
+cli.main(sys.argv[1:])
+print(f"[rank] N_col of each solve: {seen}", file=sys.stderr)
+"""
+
+
+def _degraded_argv(target: float) -> list:
+    return ["--family", "Hubbard",
+            "--params", ",".join(f"{k}={v}" for k, v in HUBBARD.items()),
+            "--n-target", "4", "--n-search", "32", "--target", repr(target),
+            "--tol", "1e-8", "--max-iters", "40", "--spmv-kernel",
+            "--n-row", "2", "--n-col", "2", "--layout", "panel",
+            "--device", "cpu", "--backend", "gloo", "--degraded-ok"]
+
+
+def _torchrun_env() -> dict:
+    return dict(os.environ, OMP_NUM_THREADS="1",
+                PYTHONPATH=os.pathsep.join(
+                    [os.path.join(os.path.dirname(os.path.dirname(
+                        os.path.abspath(__file__))), "src")]
+                    + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def _launch_degraded(tmp, target: float) -> subprocess.Popen:
+    """(p) ``--degraded-ok`` under ``python -m torch.distributed.run``
+    with a failure planted on every rank, started here beside the
+    spawn."""
+    script = tmp / "degraded.py"
+    script.write_text(DEGRADED_SCRIPT)
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(WORLD), str(script),
+         *_degraded_argv(target)],
+        env=_torchrun_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=tmp)
 
 
 def _sum_counts(per_rank: list) -> tuple:
@@ -557,15 +884,161 @@ def test_rank_solve_matches_the_reference(run):
 
 
 def test_refusals_on_ranks(run):
-    """(i) A world size other than the grid's, the s-step filter,
-    ``layout="auto"`` and a checkpoint's counters are refused on ranks,
-    each naming why."""
+    """(i) The refusals that remain on ranks: a world size other than the
+    grid's, a sub-grid with another number of members than shards, and a
+    rank outside the sub-grid it is asked to build (the others build
+    it), each naming why."""
     ranks, _, _ = run
-    for r in ranks:
+    for rank, r in enumerate(ranks):
         out = r["refusals"]
         assert "one rank a shard" in out["world"]
-        for key in ("sstep", "auto", "checkpoint"):
-            assert out[key] and "later slice" in out[key], key
+        assert "needs 2 distinct ranks" in out["members"]
+        if rank < 2:
+            assert out["outside"] is None
+        else:
+            assert "is not one of (0, 1)" in out["outside"]
+
+
+@pytest.mark.parametrize("op", ["RoadNet", "HubNet"])
+def test_sstep_filter_bit_equal_on_ranks(run, op):
+    """(k) The s-step filter (s = 2, 3; a2a and compressed cyclic and
+    matching, with and without overlap) on 4 ranks: each rank's rows
+    bit-equal to the one-process filter's, the bytes summed over the
+    ranks and each rank's calls the one process's, the census of a
+    rank's record (its collectives per device) the one process's, and
+    the split-phase proof over one rank's record of one group holding
+    exactly where the engine overlaps."""
+    ranks, _, _ = run
+    keys = [k for k in ranks[0]["sstep"] if k[0] == op]
+    assert len(keys) == 2 * len(SSTEP_ENGINES)
+    for key in keys:
+        per_rank = [r["sstep"][key] for r in ranks]
+        for r, p in enumerate(per_rank):
+            assert p["rows"], (key, r)
+            assert p["census"][0] == p["census"][1], (key, r)
+            assert p["proof_ok"] == p["overlap"], (key, r, p["proof_errors"])
+        _held_to_one_process(per_rank)
+        assert sum(per_rank[0]["one_calls"][k] for k in (
+            "all_to_all", "ppermute")) > 0
+
+
+def test_sstep_solve_on_ranks(run):
+    """(l) A stack 4×1 solve with the s = 3 filter (compressed cyclic,
+    split-phase) on 4 ranks against the one process's: eigenvalues to
+    1e-9, iterations within one, ⌈degree/3⌉ exchanges a filter, and
+    where the degrees agree the bytes summed and the calls the one
+    process's."""
+    ranks, one, _ = run
+    g, want = ranks[0]["solves"]["sstep"], one["sstep"]
+    assert all(np.array_equal(r["solves"]["sstep"]["eigenvalues"],
+                              g["eigenvalues"]) for r in ranks)
+    assert g["n_converged"] >= FD["n_target"]
+    assert abs(g["iterations"] - want["iterations"]) <= 1
+    np.testing.assert_allclose(np.sort(g["eigenvalues"]),
+                               np.sort(want["eigenvalues"]), rtol=0,
+                               atol=1e-9)
+    ex = g["exchange"]
+    assert ex["sstep"] == 3
+    assert ex["filter_engine"] == "compressed-cyclic-overlap+s3"
+    assert ex["filter_exchanges"] == sum(-(-d // 3) for d in g["degrees"]
+                                         if d)
+    if g["degrees"] == want["degrees"]:
+        assert (ex["bytes"], ex["calls"]) == (want["exchange"]["bytes"],
+                                              want["exchange"]["calls"])
+
+
+def test_layout_auto_with_plan_cache_on_ranks(run):
+    """(m) ``--layout auto`` on 4 ranks through a plan cache: every rank
+    runs rank 0's plan (its config, split and row map), which is the one
+    process's; the solve equals the one-process auto solve to 1e-9; the
+    second plan is a cache hit with no planner call; and
+    ``FilterDiag(layout="auto")`` on ranks plans the grid's layout on
+    rank 0 for every rank."""
+    ranks, one, _ = run
+    got = [r["auto"] for r in ranks]
+    want = one["auto"]
+    for g in got:
+        assert g["fingerprint"] == got[0]["fingerprint"]
+        assert (g["cfg"], g["split"]) == (want["cfg"], want["split"])
+        assert g["fd_auto"] == got[0]["fd_auto"]
+        np.testing.assert_array_equal(g["eigenvalues"], got[0]["eigenvalues"])
+    g = got[0]
+    # the second plan's own cache: a hit and no planner call
+    assert g["second"][1:] == (True, 1, 0)
+    assert abs(g["iterations"] - want["iterations"]) <= 1
+    np.testing.assert_allclose(np.sort(g["eigenvalues"]),
+                               np.sort(want["eigenvalues"]), rtol=0,
+                               atol=1e-9)
+
+
+def _same_result(a: dict, b: dict) -> None:
+    """Two summaries of one solve, bit for bit (the exchange summary
+    without what only a rank reports)."""
+    for k in ("eigenvalues", "residuals"):
+        np.testing.assert_array_equal(a[k], b[k])
+    for k in ("iterations", "n_converged", "degrees", "vectors",
+              "total_spmvs"):
+        assert a[k] == b[k], k
+
+
+@pytest.mark.parametrize("case", ["faulted", "from_one", "to_one"])
+def test_checkpoint_resume_on_ranks(run, case):
+    """(n) Checkpoint and resume on 4 ranks (Hubbard(6,3) pillar 1×4,
+    a checkpoint every 5 iterations). ``faulted``: a fault on every rank
+    at iteration 12, restored from the step-10 checkpoint rank 0 wrote,
+    is bit-equal to the uninterrupted rank solve ((f)'s pillar), its
+    counters summed over the ranks equal; ``from_one``: a checkpoint one
+    process wrote, resumed on the ranks, and ``to_one``: the ranks'
+    checkpoints as they stood at the fault, resumed in one process, each
+    match the uninterrupted solve to 1e-9 (iterations and degrees
+    equal). A checkpoint of another row map is refused."""
+    ranks, one, _ = run
+    full = ranks[0]["solves"]["pillar"]
+    if case == "to_one":
+        got = one["resumed_here"]
+        assert got["resumed_at"] == 10
+    else:
+        got = ranks[0]["checkpoint"][case]
+        assert all(r["checkpoint"][case]["eigenvalues"].tolist()
+                   == got["eigenvalues"].tolist() for r in ranks)
+        assert "does not match the solver's" in ranks[0]["checkpoint"][
+            "mismatch"]
+    if case == "faulted":
+        assert got["restarts"] == 1 and got["faults"] == [FAULT_AT]
+        _same_result(got, full)
+        ex, ex0 = got["exchange"], full["exchange"]
+        for k in ("bytes", "calls", "panel", "filter_exchanges", "layout"):
+            assert ex[k] == ex0[k], k
+        return
+    assert (got["iterations"], got["degrees"]) == (full["iterations"],
+                                                   full["degrees"])
+    np.testing.assert_allclose(got["eigenvalues"], full["eigenvalues"],
+                               rtol=0, atol=1e-9)
+    for k in ("bytes", "calls", "panel", "filter_exchanges"):
+        assert got["exchange"][k] == full["exchange"][k], k
+
+
+def test_batched_service_on_ranks(run):
+    """(o) The service on 4 ranks: rank 0 planned the pattern once
+    through the cache (later drains hit), the batched, supervised drain
+    restarted once from the fault and is bit-equal to each request
+    served alone on the ranks, every rank holds the same results, and
+    each request equals the one-process service's to 1e-9 on the same
+    planned cell."""
+    ranks, one, _ = run
+    svc = ranks[0]["service"]
+    assert svc["restarts"] == 1 and svc["faults"] == [FAULT_AT]
+    assert svc["cell"] == one["service"]["cell"]
+    assert (svc["plan_calls"], svc["misses"], svc["hits"]) == (1, 1, 2)
+    for rid, _, _ in SVC_REQUESTS:
+        b, solo = svc["batched"][rid], svc["solo"][rid]
+        _same_result(b, solo)
+        for r in ranks[1:]:
+            _same_result(r["service"]["batched"][rid], b)
+        want = one["service"]["results"][rid]
+        assert b["iterations"] == want["iterations"]
+        np.testing.assert_allclose(b["eigenvalues"], want["eigenvalues"],
+                                   rtol=0, atol=1e-9)
 
 
 def test_split_phase_proof_on_a_rank(run):
@@ -602,11 +1075,7 @@ def test_cli_under_torchrun_prints_once(run, tmp_path):
     to their printed precision) with the world size, the backend and the
     staged bytes."""
     _, one, _ = run
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [os.path.join(os.path.dirname(os.path.dirname(
-                       os.path.abspath(__file__))), "src")]
-                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    env = _torchrun_env()
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", str(WORLD), "-m", "repro_torch.launch.solve",
@@ -622,14 +1091,9 @@ def test_cli_under_torchrun_prints_once(run, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--backend", "gloo", "--layout", "auto"), "later slice"),
-    (("--backend", "gloo", "--spmv-sstep", "2"), "later slice"),
-    (("--backend", "gloo", "--serve", "x.json"), "later slice"),
-    (("--backend", "gloo", "--plan-cache", "p.json"), "later slice"),
     (("--backend", "nccl", "--share-card"), "NCCL refuses"),
     (("--share-card",), "needs --backend"),
-], ids=["auto", "sstep", "serve", "plan-cache", "nccl-share-card",
-        "share-card-alone"])
+], ids=["nccl-share-card", "share-card-alone"])
 def test_cli_refuses_on_ranks(capsys, extra, match):
     """(i) The CLI refuses the options a rank launch does not take, before
     it starts a process group."""
@@ -638,6 +1102,29 @@ def test_cli_refuses_on_ranks(capsys, extra, match):
     with pytest.raises(SystemExit):
         cli.main(_cli_argv(extra))
     assert match in capsys.readouterr().err
+
+
+def test_cli_degraded_ok_under_torchrun(run):
+    """(p) ``--degraded-ok`` under ``python -m torch.distributed.run``
+    with a failure planted on every rank's first solve: the panel 2×2
+    launch retries on the 2×1 sub-grid of ranks 0 and 2 with n_search
+    32 → 16, the last column's ranks wait and print nothing, rank 0
+    prints once, and the eigenvalues equal the one-process degraded
+    retry's (panel 2×1, n_search 16) to 1e-9."""
+    _, one, _ = run
+    out, err = one["degraded_launch"]
+    assert one["degraded_rc"] == 0, err[-4000:]
+    assert out.count("[degraded]") == 1 and out.count("eigenvalues:") == 1
+    assert "lost a column group" in out
+    assert "retrying with n_search=16 on 2x1" in out
+    assert "panel(2x1)" in out and "ranks: 2 (gloo" in out
+    assert sorted(ln for ln in err.splitlines()
+                  if "N_col of each solve" in ln) == sorted(
+        [f"[rank] N_col of each solve: {s}"
+         for s in ([2, 1], [2], [2, 1], [2])])
+    np.testing.assert_allclose(np.sort(_eigenvalues(out)),
+                               np.sort(one["degraded"]["eigenvalues"]),
+                               rtol=0, atol=1e-9)
 
 
 def test_nccl_with_a_shared_card_raises():
